@@ -6,11 +6,11 @@
 Run from the root of a checkout. Every phase raises on failure; nothing is
 caught. Phases, each printing lines before the last:
   1. card: name and power limit (nvidia-smi);
-  2. build: compile the port's CUDA kernels from csrc/ (one nvcc per source,
-     all started together);
+  2. build: compile the port's CUDA kernel from csrc/sw.cu;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the align stage's shapes, exact integer equality required; times from
-     CUDA events (median), GCUPS and the card's bound;
+     CUDA events (median), GCUPS over the cells the inputs need, and the
+     card's bound for those cells;
   4. golden parity: the port's `align` on the 500-query toy set equals the
      reference MMseqs2 goldens (tests/golden/toy, tests/golden/alt): default
      and non-default scoring, --realign, --alt-ali, --corr-score-weight;
@@ -18,6 +18,8 @@ caught. Phases, each printing lines before the last:
      1,000 queries with 300 prefilter candidates each (300,000 pairs), data
      made from a seed; launch counts taken over this run; the first 32
      queries' results equal a run with the CPU requested (plain versions);
+     then the same align once more under torch.profiler: the card's busy
+     and idle shares, device time by kernel, tracing overhead;
   6. one JSON line listing every kernel;
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA card or outside a checkout of the repository.
@@ -44,10 +46,12 @@ SEED = 20261016
 # the data sheet, 67 TFLOP/s, is 132 x 128 lanes x 2 (FMA) x 1.98 GHz)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int32 operations one affine-gap SW cell with end tracking needs at least:
-# E = max(H - go, E - ge) 3, F = max(Hng - go, F - ge) 3, diagonal add 1,
-# H = max(diag, E, F, 0) 3, running-best compare 1
-SW_OPS_PER_CELL = 11
+# int32 instructions one affine-gap SW cell needs at the least, in Hopper's
+# DPX forms (csrc/sw.cu lists them): H - go 1 (shared by E and F), E and F
+# one __viaddmax_s32 each, max(diag + s, E) one __viaddmax_s32,
+# max(., F, 0) one __vimax_s32_relu, running best 1. The data sheet gives no
+# DPX rate; the bound takes one DPX instruction per int32 lane and clock.
+SW_OPS_PER_CELL = 6
 
 
 def log(msg):
@@ -80,8 +84,10 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
-def sw_bound_ms(nq, lq, lt, lanes):
-    cells = lanes * lq * lt
+def sw_bound_ms(nq, lq, lt, lanes, cells):
+    """Least time of one sw_multi launch: the `cells` its inputs need at
+    SW_OPS_PER_CELL int32 operations each, or its bytes (each input read
+    once, each output written once), whichever takes longer."""
     ops_s = cells * SW_OPS_PER_CELL / INT32_OPS_PER_S
     nbytes = nq * 32 * lq * 4 + lt * lanes + 2 * 4 * lanes + 3 * 4 * lanes
     bytes_s = nbytes / HBM_BYTES_PER_S
@@ -103,7 +109,11 @@ def sw_case(rng, submat, nq, lq, lt, lanes, reverse, negative=False,
             big=False):
     """Inputs of one sw_multi launch as the align stage builds them: nq
     query profiles of the Lq bucket, lanes targets of the Lt bucket (half of
-    them mutated fragments of their query), pad letter 31."""
+    them mutated fragments of their query), pad letter 31. The reverse pass
+    takes the reversed profile (pad rows first) and qoff = lq - 1 - qend.
+    Also returns the cells the launch needs: per lane, its real query rows
+    at or past qoff times its real target length (pad rows and columns
+    cannot raise the best score)."""
     from mmseqs2_tpu_torch.ops.encode import make_query_profile
     mat = submat.sub_matrix.astype(np.int32)
     aa_idx = np.array([submat.aa2num[c] for c in AA])
@@ -116,10 +126,11 @@ def sw_case(rng, submat, nq, lq, lt, lanes, reverse, negative=False,
             prof = np.where(prof > -(1 << 20), -1 - np.abs(prof) % 7, prof)
         if big:
             prof[q[0], 0] = 255
-        profs.append(prof)
+        profs.append(prof[:, ::-1] if reverse else prof)
         qseqs.append(q)
     qsel = rng.integers(0, nq, size=lanes).astype(np.int32)
     tb = np.full((lt, lanes), 31, np.int8)
+    tlen = np.zeros(lanes, np.int64)
     for b in range(lanes):
         n = int(rng.integers(lt // 2 + 1, lt + 1))
         t = aa_idx[rng.choice(20, size=n, p=PBACK)]
@@ -129,11 +140,19 @@ def sw_case(rng, submat, nq, lq, lt, lanes, reverse, negative=False,
             frag = q[:m].copy()
             mut = rng.random(m) < 0.3
             frag[mut] = aa_idx[rng.choice(20, size=int(mut.sum()), p=PBACK)]
-            t[:m] = frag
+            t[:m] = frag[::-1] if reverse else frag
         tb[:n, b] = t
-    qoff = (rng.integers(0, lq, size=lanes).astype(np.int32) if reverse
-            else np.zeros(lanes, np.int32))
-    return np.concatenate(profs), tb, qsel, qoff
+        tlen[b] = n
+    qlen = np.array([len(q) for q in qseqs], np.int64)[qsel]
+    if reverse:
+        qend = (rng.random(lanes) * qlen).astype(np.int64)
+        qoff = (lq - 1 - qend).astype(np.int32)
+        rows = qend + 1
+    else:
+        qoff = np.zeros(lanes, np.int32)
+        rows = qlen
+    cells = int((rows * tlen).sum())
+    return np.concatenate(profs), tb, qsel, qoff, cells
 
 
 def phase_kernels(rng):
@@ -161,7 +180,7 @@ def phase_kernels(rng):
         "equality); ms = median of CUDA-event timings")
     rows = []
     for c in cases:
-        pf, tb, qsel, qoff = sw_case(
+        pf, tb, qsel, qoff, cells = sw_case(
             rng, submat, c["nq"], c["lq"], c["lt"], c["lanes"], c["reverse"],
             c.get("negative", False), c.get("big", False))
         args = [torch.from_numpy(a).cuda() for a in (pf, tb, qsel, qoff)]
@@ -177,16 +196,18 @@ def phase_kernels(rng):
                 (got[2] == -1).all()) and bool((got[1] == c["lq"] - 1).all())
         ms = time_ms(lambda: sw.sw_multi(*args, go=go, ge=ge), 5)
         plain_ms = time_ms(lambda: sw.sw_multi_plain(*args, go=go, ge=ge), 2)
-        bound, by = sw_bound_ms(c["nq"], c["lq"], c["lt"], c["lanes"])
-        cells = c["lanes"] * c["lq"] * c["lt"]
-        name = (f"nq={c['nq']} lq={c['lq']} lt={c['lt']} lanes={c['lanes']} "
+        bound, by = sw_bound_ms(c["nq"], c["lq"], c["lt"], c["lanes"], cells)
+        padded = c["lanes"] * c["lq"] * c["lt"]
+        name =(f"nq={c['nq']} lq={c['lq']} lt={c['lt']} lanes={c['lanes']} "
                 f"{'reverse' if c['reverse'] else 'forward'} "
                 f"go/ge={go}/{ge}"
                 + (" all-negative" if c.get("negative") else "")
                 + (" bound>TPU-pack-limit" if c.get("big") else ""))
         row = dict(case=name, equal=equal, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, gcups=cells / ms / 1e6,
-                   bound_ms=bound, bound_by=by, max_score=int(got[0].max()))
+                   plain_ms=plain_ms, cells_real=cells, cells_padded=padded,
+                   gcups_real=cells / ms / 1e6, gcups_padded=padded / ms / 1e6,
+                   bound_ms=bound, bound_by=by, bound_share=bound / ms,
+                   max_score=int(got[0].max()))
         log("kernel-case " + json.dumps(row))
         if not equal:
             raise AssertionError(f"sw_multi differs from its plain version: "
@@ -397,6 +418,59 @@ def phase_real_size(rng, n_targets=20_000, n_queries=1_000, max_seqs=300,
     return res
 
 
+def device_spans_s(events):
+    """Seconds in which the card ran anything (the union of the intervals
+    of kernels, copies and memsets) in a chrome-trace event list, and the
+    device time by name as {name: [count, seconds]}."""
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for e in sorted(dev, key=lambda e: float(e["ts"])):
+        s = float(e["ts"])
+        t = s + float(e.get("dur", 0.0))
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+        k = by_name.setdefault(e["name"], [0, 0.0])
+        k[0] += 1
+        k[1] += float(e.get("dur", 0.0)) / 1e6
+    return busy / 1e6, by_name
+
+
+def phase_trace(untraced_wall):
+    """The real-size `align -a` once more, under torch.profiler (CPU and
+    CUDA activities), apart from the untraced run whose wall is the metric:
+    the card's busy and idle shares of the traced wall, device time by
+    kernel, and what tracing costs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_cli(["align", WORK / "qdb", WORK / "tdb", WORK / "pref",
+                 WORK / "aln_traced", "-a"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    path = WORK / "align_trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        busy, by_name = device_spans_s(json.load(f)["traceEvents"])
+    if busy <= 0:
+        raise AssertionError("the profiler trace holds no device activity")
+    if entries(WORK / "aln_traced") != entries(WORK / "aln"):
+        raise AssertionError("the traced align run gave other results")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    res = dict(
+        traced_wall_s=wall, untraced_wall_s=untraced_wall,
+        tracing_overhead=wall / untraced_wall - 1, device_busy_s=busy,
+        busy_share=busy / wall, idle_share=1 - busy / wall,
+        device_s_by_name=[dict(name=n[:100], count=c, s=s)
+                          for n, (c, s) in top])
+    log("trace " + json.dumps(res))
+    return res
+
+
 def main():
     try:
         import torch
@@ -428,13 +502,11 @@ def main():
     # 2. build
     from mmseqs2_tpu_torch.ops import kernels
     t0 = time.perf_counter()
-    reports = kernels.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s for "
-        f"{len(reports)} source(s)")
-    for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    report = kernels.build("sw")
+    log(f"build: csrc/sw.cu in {time.perf_counter() - t0:.2f} s")
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas sw: {line.strip()}")
 
     # 3. kernels against their plain versions
     rows = phase_kernels(rng)
@@ -442,8 +514,9 @@ def main():
     # 4. golden parity on the card
     phase_golden()
 
-    # 5. the main path at real size
+    # 5. the main path at real size, then a traced rerun
     real = phase_real_size(rng)
+    phase_trace(real["wall_s"])
 
     # 6. kernels line
     rep = next(r for c, r in rows if c["nq"] == 16 and c["lq"] == 512

@@ -34,14 +34,20 @@
 //     last row and the running max of Hng[k] + k*ge in global scratch for the
 //     next chunk (hb, gb: nlanes x lt int32 each).
 //
-// What bounds it: integer operations. Each cell costs about 18 int32
-// operations (the DP recurrence, the F closure and the end tracking) against
-// a few bytes of profile read from L1/L2 and one target byte per column, so
-// the card's int32 rate is the roof. Profile rows are read as 16-byte vectors
-// through the read-only cache; target letters are fetched 32 columns at a
-// time, one per thread, and broadcast by shuffle. Making it fast (DPX
-// instructions such as __viaddmax_s32, int16x2 packing, an inter-sequence
-// layout) is later work.
+// What bounds it: integer operations. A cell needs at least 6 int32
+// instructions in Hopper's DPX forms: H - go (shared by E and F), E and F
+// each one __viaddmax_s32, max(diag + s, E) one __viaddmax_s32,
+// max(., F, 0) one __vimax_s32_relu, and the running best one max. That is
+// the count chip_smoke.py's bound uses, against the card's int32 rate, over
+// the cells a launch needs (real query rows >= qoff times real target
+// columns; pad rows and columns cannot raise the best). This kernel issues
+// about 18 plain int32 instructions per cell instead (the recurrence, the
+// prefix-max F closure and full end tracking, without DPX) against a few
+// bytes of profile read from L1/L2 and one target byte per column. Profile
+// rows are read as 16-byte vectors through the read-only cache; target
+// letters are fetched 32 columns at a time, one per thread, and broadcast by
+// shuffle. Making it fast (DPX, int16x2 packing, skipping pad rows and
+// columns, an inter-sequence layout) is later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels at first use.
 
-Each source `csrc/<name>.cu` exposes a plain C interface and is compiled by
+A source `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` for Hopper (sm_90a) into a shared library under the package's
 git-ignored build directory, keyed by a hash of the source and the flags,
 then loaded with ctypes. Nothing is built when a module is imported: a CPU
@@ -19,7 +19,6 @@ from .. import BUILD_DIR, PACKAGE_DIR
 CSRC = PACKAGE_DIR / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("sw",)
 
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -45,34 +44,27 @@ def library_path(name: str):
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES):
-    """Compile every listed source that is not built yet, one nvcc process
-    per source, all started together. Returns {name: ptxas report}."""
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless it is built already. Returns nvcc's
+    output (the ptxas report), or "" when nothing was built."""
+    so = library_path(name)
+    if so.exists():
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        so = library_path(name)
-        if so.exists():
-            continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, so)
-    reports = {}
-    for name, (proc, tmp, so) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
-        os.replace(tmp, so)
-        reports[name] = out
-    return reports
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
+    os.replace(tmp, so)
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build((name,))
+            build(name)
             lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
         return lib

@@ -83,16 +83,20 @@ def _jdp():
     return dp
 
 
-def jax_sw_scan_masked(prof_flat, targets, qsel, qoff, go, ge):
-    """dp.sw_scan with one profile per lane whose rows below qoff score
-    NEG_INF (the offset semantics spelled out)."""
-    jdp = _jdp()
+def masked_profiles(prof_flat, qsel, qoff):
+    """One profile per lane whose rows below qoff score NEG_INF (the offset
+    semantics spelled out), for the dp.sw_scan oracles."""
     nq = prof_flat.shape[0] // 32
     profs = prof_flat.reshape(nq, 32, -1)[qsel].copy()
     for k, o in enumerate(qoff):
         profs[k, :, :o] = NEG_INF
-    return [np.asarray(x) for x in jdp.sw_scan(
-        profs, np.arange(len(qsel), dtype=np.int32), targets, go, ge)]
+    return profs
+
+
+def jax_sw_scan_masked(prof_flat, targets, qsel, qoff, go, ge):
+    return [np.asarray(x) for x in _jdp().sw_scan(
+        masked_profiles(prof_flat, qsel, qoff),
+        np.arange(len(qsel), dtype=np.int32), targets, go, ge)]
 
 
 # (nq, lq, lt, b, offsets, go, ge): the Pallas comparison runs in
@@ -130,11 +134,8 @@ def test_sw_multi_plain_matches_dp(nq, lq, offsets, go, ge):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     # the port's own oracle agrees too
-    nqp = prof_flat.shape[0] // 32
-    profs = prof_flat.reshape(nqp, 32, -1)[qsel].copy()
-    for k, o in enumerate(qoff):
-        profs[k, :, :o] = NEG_INF
-    mine = tdp.sw_scan(profs, np.arange(len(qsel)), targets, go, ge)
+    mine = tdp.sw_scan(masked_profiles(prof_flat, qsel, qoff),
+                       np.arange(len(qsel)), targets, go, ge)
     for g, w in zip(mine, want):
         np.testing.assert_array_equal(g.numpy(), w)
 
@@ -290,6 +291,9 @@ def cuda_device():
     (1, 32, 40, 8, False), (4, 72, 40, 16, True), (16, 512, 300, 600, True),
     (1, 2500, 200, 40, True)])
 def test_sw_multi_kernel_matches_plain(cuda_device, nq, lq, lt, b, offsets):
+    """The kernel against both oracles: its plain version (E from the
+    post-F H, as the TPU kernel) and the port's dp.sw_scan (E from the
+    pre-F H), the latter on the card."""
     prof_flat, targets, qsel, qoff = make_case(lq, nq, lq, lt, b, offsets)
     args = [torch.from_numpy(prof_flat),
             torch.from_numpy(np.ascontiguousarray(targets.T.astype(np.int8))),
@@ -301,3 +305,8 @@ def test_sw_multi_kernel_matches_plain(cuda_device, nq, lq, lt, b, offsets):
     assert tsw.sw_multi.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+    oracle = tdp.sw_scan(
+        torch.from_numpy(masked_profiles(prof_flat, qsel, qoff)).to(
+            cuda_device), np.arange(b), targets, 11, 1)
+    for g, w in zip(got, oracle):
+        assert torch.equal(g, w)
