@@ -6,25 +6,43 @@
 Run from the root of a checkout. Every phase raises on failure; nothing is
 caught. Phases, each printing lines before the last:
   1. card: name and power limit (nvidia-smi);
-  2. build: compile the port's CUDA kernel from csrc/sw.cu;
+  2. build: compile every CUDA kernel of the port, one nvcc per source of
+     KERNEL_SOURCES, all started together;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the align stage's shapes, exact integer equality required; times from
-     CUDA events (median), GCUPS over the cells the inputs need, and the
-     card's bound for those cells;
+     the shapes its stage launches, exact integer equality required; times
+     from CUDA events (median), cells per second over the cells the inputs
+     need, and the card's bound for those cells. sw_multi at the align
+     stage's shapes, diag_rescore at the prefilter's (2^10 to 2^17
+     candidates, windows of real protein lengths, edge cases);
   4. golden parity: the port's `align` on the 500-query toy set equals the
      reference MMseqs2 goldens (tests/golden/toy, tests/golden/alt): default
      and non-default scoring, --realign, --alt-ali, --corr-score-weight;
-  5. real size: `createdb` + `align -a` on 20,000 SwissProt-like targets and
-     1,000 queries with 300 prefilter candidates each (300,000 pairs), data
-     made from a seed; launch counts taken over this run; the first 32
-     queries' results equal a run with the CPU requested (plain versions);
-     then the same align once more under torch.profiler: the card's busy
-     and idle shares, device time by kernel, tracing overhead;
-  6. one JSON line listing every kernel;
+     the port's `prefilter` of the toy set against itself equals the goldens
+     at the default sensitivity and at -s 5.7 on all 500 queries, and
+     `easy-search QUERY.fasta QUERY.fasta` equals golden_self.m8;
+  5. real size, align only: `createdb` + `align -a` on N_TARGETS
+     SwissProt-like targets and 1,000 queries with 300 synthetic prefilter
+     candidates each (300,000 pairs), data made from a seed; launch counts
+     taken over this run; the first 32 queries' results equal a run with
+     the CPU requested (plain versions); then the same align once more
+     under torch.profiler: the card's busy and idle shares, device time by
+     kernel, tracing overhead;
+  6. real size, the main path: `easy-search` of the same 1,000 queries
+     against the same targets, from the FASTA files through createdb,
+     prefilter, align and convertalis, no synthetic prefilter DB; every
+     kernel's launch count is set to 0 just before and read just after;
+     wall time, queries/s, the split of the wall, the queries that took the
+     host-oracle route, the hits; the first 32 queries' lines equal a run
+     with the CPU requested; then the prefilter step once more under
+     torch.profiler. (Phase 4's prefilter runs also show that a flush is
+     dispatched with no synchronisation: PyTorch's sync debug mode raises
+     on one);
+  7. one JSON line listing every kernel;
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA card or outside a checkout of the repository.
 """
 
+import contextlib
 import json
 import os
 import pathlib
@@ -40,6 +58,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "toy"
 WORK = ROOT / ".smoke_work"
 SEED = 20261016
+# every kernel source of the port, csrc/<name>.cu: a new kernel adds a name
+KERNEL_SOURCES = ("sw", "rescore")
+# targets of the real-size phases: the size of the reference's small bench
+# run (experiments/make_scale_db.py); the 1,000 queries stay
+N_TARGETS = 50_000
 
 # H100 SXM, published: 3.35 TB/s HBM3; int32 rate of the CUDA cores:
 # 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 16.7 Top/s (the fp32 row of
@@ -52,6 +75,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # max(., F, 0) one __vimax_s32_relu, running best 1. The data sheet gives no
 # DPX rate; the bound takes one DPX instruction per int32 lane and clock.
 SW_OPS_PER_CELL = 6
+# int32 operations one cell of the ungapped diagonal rescore needs at the
+# least: the score (lookup plus correction), the add-max-relu step of the
+# running sum, the running best
+RESCORE_OPS_PER_CELL = 3
 
 
 def log(msg):
@@ -216,6 +243,140 @@ def phase_kernels(rng):
     return rows
 
 
+def rescore_store(rng, n_t=N_TARGETS, n_q=128):
+    """A target store and a query batch at the prefilter's shapes: random
+    letters at SwissProt-like lengths; every fourth query is a mutated
+    fragment of a target. Returns the store, the batch and, per query, the
+    (target, offset) it was cut from (or (-1, 0))."""
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    m = get_submat("blosum62.out", 2.0, -0.2).sub_matrix.astype(np.int32)
+    alpha = m.shape[0]
+    t_len = lengths(rng, n_t).astype(np.int32)
+    t_off = np.concatenate([[0], np.cumsum(t_len[:-1], dtype=np.int64)])
+    t_cat = rng.choice(20, size=int(t_len.sum()), p=PBACK).astype(np.int8)
+    q_len = np.minimum(lengths(rng, n_q), 1500).astype(np.int32)
+    lq = int(q_len.max())
+    q_pad = np.full((n_q, lq), alpha - 1, np.uint8)
+    corr = np.zeros((n_q, lq), np.int8)
+    origin = np.full((n_q, 2), -1, np.int64)
+    for b in range(n_q):
+        n = int(q_len[b])
+        q_pad[b, :n] = rng.choice(20, size=n, p=PBACK)
+        corr[b, :n] = rng.integers(-2, 3, size=n)
+        if b % 4 == 0:
+            t = int(rng.integers(n_t))
+            m_len = min(n, int(t_len[t]))
+            o = int(rng.integers(0, int(t_len[t]) - m_len + 1))
+            frag = t_cat[t_off[t] + o:t_off[t] + o + m_len].copy()
+            mut = rng.random(m_len) < 0.2
+            frag[mut] = rng.choice(20, size=int(mut.sum()), p=PBACK)
+            q_pad[b, :m_len] = frag
+            origin[b] = (t, o)
+    return dict(t_cat=t_cat, t_off=t_off, t_len=t_len, q_pad=q_pad,
+                corr=corr, submat=m, q_len=q_len, origin=origin)
+
+
+def rescore_case(rng, st, n_cand, slots=None, edge=False, negative=False):
+    """Candidates as the prefilter's candidate stage leaves them: n_cand
+    valid ones at the front of `slots` slots, the rest invalid with qid and
+    id I32_MAX. Random diagonals inside the pair's range; for the queries
+    cut from a target, a share of candidates on the true diagonal (scores
+    past 255). `edge` adds the extremes of the 16-bit diagonal, windows of
+    0 and 1 cells and invalid slots in between; `negative` scores every
+    cell below 0. Returns the wrapper's arguments (numpy) and the cells."""
+    slots = slots or n_cand
+    n_q, n_t = len(st["q_len"]), len(st["t_len"])
+    cqid = rng.integers(0, n_q, size=n_cand).astype(np.int64)
+    cid = rng.integers(0, n_t, size=n_cand).astype(np.int64)
+    true = (st["origin"][cqid, 0] >= 0) & (rng.random(n_cand) < 0.5)
+    cid[true] = st["origin"][cqid[true], 0]
+    lo = -(st["t_len"][cid].astype(np.int64) - 1)
+    hi = st["q_len"][cqid].astype(np.int64) - 1
+    d = (lo + rng.random(n_cand) * (hi - lo + 1)).astype(np.int64)
+    d[true] = -st["origin"][cqid[true], 1]
+    valid = np.ones(n_cand, bool)
+    if edge:
+        d[:6] = (-32768, 32767, hi[2], lo[3], hi[4] + 1, lo[5] - 1)
+        valid[rng.random(n_cand) < 0.1] = False
+        valid[:6] = True
+    d = np.clip(d, -32768, 32767)
+    qs, ts = np.maximum(d, 0), np.maximum(-d, 0)
+    n = np.maximum(np.minimum(st["t_len"][cid] - ts,
+                              st["q_len"][cqid] - qs), 0)
+    cells = int(n[valid].sum())
+    pad = slots - n_cand
+
+    def full(a, fill, dtype):
+        return np.concatenate([a, np.full(pad, fill)]).astype(dtype)
+    cqid = np.where(valid, cqid, 2147483647)
+    cid = np.where(valid, cid, 2147483647)
+    submat = -1 - np.abs(st["submat"]) if negative else st["submat"]
+    corr = -np.abs(st["corr"]) if negative else st["corr"]
+    args = (full(cqid, 2147483647, np.int32), full(cid, 2147483647, np.int32),
+            full(d & 0xFFFF, 0, np.int32), full(valid, False, bool),
+            st["t_cat"], st["t_off"], st["t_len"], st["q_pad"], corr,
+            np.ascontiguousarray(submat), st["q_len"])
+    return args, cells
+
+
+def rescore_bound_ms(args, cells):
+    """Least time of one diag_rescore launch: RESCORE_OPS_PER_CELL int32
+    operations for each of the `cells` its windows hold, or its bytes (each
+    input byte once: the target bytes the windows touch, the query letters
+    and corrections, the matrix, 13 B in and 4 B out per slot and 12 B of
+    target table per candidate), whichever takes longer."""
+    slots = len(args[0])
+    n_valid = int(args[3].sum())
+    ops_s = cells * RESCORE_OPS_PER_CELL / INT32_OPS_PER_S
+    nbytes = (min(cells, args[4].nbytes) + args[7].nbytes + args[8].nbytes
+              + args[9].nbytes + args[10].nbytes + slots * (13 + 4)
+              + min(n_valid, len(args[6])) * 12)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def phase_rescore_kernel(rng):
+    import torch
+    from mmseqs2_tpu_torch.ops import rescore
+    st = rescore_store(rng)
+    cases = [dict(n_cand=1 << 10), dict(n_cand=1 << 13), dict(n_cand=1 << 15),
+             dict(n_cand=1 << 17),
+             dict(n_cand=1 << 17, slots=1 << 21),     # a flush's own shape
+             dict(n_cand=1 << 12, edge=True),
+             dict(n_cand=1 << 12, negative=True)]
+    rows = []
+    for c in cases:
+        np_args, cells = rescore_case(rng, st, **c)
+        args = [torch.from_numpy(a).cuda() for a in np_args]
+        got = rescore.diag_rescore(*args)
+        want = rescore.diag_rescore_plain(*args)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        equal = torch.equal(got, want)
+        if c.get("negative"):
+            equal = equal and bool((got == 0).all())
+        ms = time_ms(lambda: rescore.diag_rescore(*args), 5)
+        plain_ms = time_ms(lambda: rescore.diag_rescore_plain(*args), 2)
+        bound, by = rescore_bound_ms(np_args, cells)
+        name = (f"candidates={c['n_cand']} slots={c.get('slots', c['n_cand'])}"
+                f" targets={len(st['t_len'])} queries={len(st['q_len'])}"
+                + (" edge-cases" if c.get("edge") else "")
+                + (" all-negative" if c.get("negative") else ""))
+        row = dict(case=name, equal=equal, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, cells=cells,
+                   gcells_per_s=cells / ms / 1e6, bound_ms=bound,
+                   bound_by=by, bound_share=bound / ms,
+                   max_score=int(got.max()),
+                   saturated=int((got > 255).sum()))
+        log("rescore-case " + json.dumps(row))
+        if not equal:
+            raise AssertionError(f"diag_rescore differs from its plain "
+                                 f"version: {name} (max abs err {err})")
+        rows.append((c, row))
+    return rows
+
+
 # -- CLI helpers -------------------------------------------------------------------
 
 def run_cli(args, cpu=False):
@@ -267,6 +428,69 @@ def phase_golden():
         if bad or len(got) != len(want):
             raise AssertionError(f"golden parity ({name}) fails for "
                                  f"queries {bad[:10]}")
+
+
+@contextlib.contextmanager
+def no_sync_in_dispatch():
+    """While this holds, every DevicePrefilter.match_batch_async runs with
+    PyTorch told to raise on any synchronising call: a flush must be
+    enqueued without one."""
+    import torch
+    from mmseqs2_tpu_torch.prefilter.device import DevicePrefilter
+    dispatch = DevicePrefilter.match_batch_async
+
+    def checked(self, *args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(self, *args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    DevicePrefilter.match_batch_async = checked
+    try:
+        yield
+    finally:
+        DevicePrefilter.match_batch_async = dispatch
+
+
+def phase_golden_search():
+    """The new commands on the card against the reference goldens: the
+    k-mer prefilter of all 500 toy queries against themselves at the
+    default sensitivity (`pref`) and at -s 5.7 (`it_pref_0`), key by key,
+    and easy-search of the toy FASTA against itself (`golden_self.m8`, as
+    sorted lines: the output follows the result DB's data-file order)."""
+    from mmseqs2_tpu_torch.commands import prefilter_kmer
+    qdb = GOLDEN / "qdb"
+    for name, extra, gold in (("default", [], GOLDEN / "pref"),
+                              ("-s 5.7", ["-s", "5.7"],
+                               GOLDEN / "it_pref_0")):
+        out = WORK / f"golden_{gold.name}"
+        prefilter_kmer.reset_stats()
+        t0 = time.perf_counter()
+        with no_sync_in_dispatch():
+            run_cli(["prefilter", qdb, qdb, out, *extra])
+        wall = time.perf_counter() - t0
+        got, want = entries(out), entries(gold)
+        bad = [k for k in want if got.get(k) != want[k]]
+        st = prefilter_kmer.STATS
+        log(f"golden prefilter {name}: {len(want)} queries, {len(bad)} "
+            f"differ, {st['flushes']} flushes dispatched with 0 "
+            f"synchronisations, {st['host_oracle_queries']} queries by the "
+            f"host oracle, {wall:.2f} s")
+        if bad or len(got) != len(want):
+            raise AssertionError(f"golden parity (prefilter {name}) fails "
+                                 f"for queries {bad[:10]}")
+    fasta = GOLDEN / "QUERY.fasta"
+    out = WORK / "golden_self.m8"
+    t0 = time.perf_counter()
+    run_cli(["easy-search", fasta, fasta, out, WORK / "golden_tmp"])
+    wall = time.perf_counter() - t0
+    got = sorted(out.read_text().splitlines())
+    want = sorted((GOLDEN / "golden_self.m8").read_text().splitlines())
+    n_bad = len(set(got) ^ set(want))
+    log(f"golden easy-search: {len(want)} lines, {n_bad} differ, "
+        f"{wall:.2f} s")
+    if got != want:
+        raise AssertionError("easy-search differs from golden_self.m8")
 
 
 def lengths(rng, n):
@@ -333,7 +557,7 @@ def name_to_key(db):
     return out
 
 
-def phase_real_size(rng, n_targets=20_000, n_queries=1_000, max_seqs=300,
+def phase_real_size(rng, n_targets=N_TARGETS, n_queries=1_000, max_seqs=300,
                     n_check=32):
     from mmseqs2_tpu_torch.align import aligner
     from mmseqs2_tpu_torch.db import dbtype as dbt
@@ -369,8 +593,8 @@ def phase_real_size(rng, n_targets=20_000, n_queries=1_000, max_seqs=300,
         for k in first:
             w.write(k, "".join(f"{t}\t0\t0\n" for t in pref[k]).encode())
     n_pairs = sum(len(v) for v in pref.values())
-    log(f"real-size data: {n_targets} targets, {n_queries} queries, "
-        f"{n_pairs} prefilter pairs, made in "
+    log(f"real-size data (nothing cut): {n_targets} targets, {n_queries} "
+        f"queries, {n_pairs} prefilter pairs, made in "
         f"{time.perf_counter() - t0:.2f} s")
 
     # the main path: counts set to 0 just before, read just after
@@ -437,38 +661,126 @@ def device_spans_s(events):
     return busy / 1e6, by_name
 
 
-def phase_trace(untraced_wall):
-    """The real-size `align -a` once more, under torch.profiler (CPU and
-    CUDA activities), apart from the untraced run whose wall is the metric:
-    the card's busy and idle shares of the traced wall, device time by
-    kernel, and what tracing costs."""
+def phase_trace(label, args, out, reference, untraced_wall):
+    """One command of a real-size phase once more, under torch.profiler
+    (CPU and CUDA activities), apart from the untraced run whose wall is
+    the metric: the card's busy and idle shares of the traced wall, device
+    time by kernel, and what tracing costs. The traced run must give the
+    entries of `reference`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_cli(["align", WORK / "qdb", WORK / "tdb", WORK / "pref",
-                 WORK / "aln_traced", "-a"])
+        run_cli(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    path = WORK / "align_trace.json"
+    path = WORK / f"{label}_trace.json"
     prof.export_chrome_trace(str(path))
     with open(path) as f:
         busy, by_name = device_spans_s(json.load(f)["traceEvents"])
+    path.unlink()
     if busy <= 0:
         raise AssertionError("the profiler trace holds no device activity")
-    if entries(WORK / "aln_traced") != entries(WORK / "aln"):
-        raise AssertionError("the traced align run gave other results")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    if entries(out) != entries(reference):
+        raise AssertionError(f"the traced {label} run gave other results")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     res = dict(
         traced_wall_s=wall, untraced_wall_s=untraced_wall,
         tracing_overhead=wall / untraced_wall - 1, device_busy_s=busy,
         busy_share=busy / wall, idle_share=1 - busy / wall,
         device_s_by_name=[dict(name=n[:100], count=c, s=s)
                           for n, (c, s) in top])
-    log("trace " + json.dumps(res))
+    log(f"trace {label} " + json.dumps(res))
     return res
+
+
+def m8_by_query(path):
+    out = {}
+    with open(path) as f:
+        for line in f:
+            out.setdefault(line.split("\t", 1)[0], []).append(line)
+    return {q: sorted(v) for q, v in out.items()}
+
+
+def phase_easy_search(n_queries=1_000, n_check=32):
+    """The main path at real size: easy-search from the two FASTA files of
+    phase_real_size through createdb, prefilter, align and convertalis."""
+    import torch
+    from mmseqs2_tpu_torch.align import aligner
+    from mmseqs2_tpu_torch.commands import prefilter_kmer
+    from mmseqs2_tpu_torch.ops import rescore, sw
+    from mmseqs2_tpu_torch.workflow import engine
+
+    tmp = WORK / "es_tmp"
+    aligner.reset_stats()
+    prefilter_kmer.reset_stats()
+    engine.STEP_SECONDS.clear()
+    # the main path: counts set to 0 just before, read just after
+    sw.sw_multi.launches = 0
+    rescore.diag_rescore.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_cli(["easy-search", WORK / "queries.fasta", WORK / "targets.fasta",
+             WORK / "es.m8", tmp, "--remove-tmp-files", "0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(sw_multi=sw.sw_multi.launches,
+                    diag_rescore=rescore.diag_rescore.launches)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the easy-search run launched no {name} "
+                                 f"kernel")
+    steps = dict(engine.STEP_SECONDS)
+    pst, ast = dict(prefilter_kmer.STATS), dict(aligner.STATS)
+    got = m8_by_query(WORK / "es.m8")
+    n_hits = sum(len(v) for v in got.values())
+    res = dict(
+        targets=N_TARGETS, queries=n_queries, wall_s=wall,
+        queries_per_s=n_queries / wall, hits=n_hits,
+        queries_with_hits=len(got), launches=launches,
+        createdb_s=steps["createdb"], prefilter_s=steps["prefilter"],
+        align_s=steps["align"],
+        convertalis_s=wall - steps["createdb"] - steps["search"],
+        prefilter=dict(
+            index_build_s=pst["index_s"], stage0_worker_sum_s=pst["prep_s"],
+            dispatch_s=pst["dispatch_s"], wait_s=pst["wait_s"],
+            write_s=pst["write_s"], flushes=pst["flushes"],
+            host_oracle_queries=pst["host_oracle_queries"],
+            prefilter_hits=pst["hits"]),
+        align=dict(pairs=ast["pairs"], scan_host_s=ast["scan_s"],
+                   kernel_s=ast["kernel_ms"] / 1e3,
+                   backtrace_s=ast["backtrace_s"]))
+    log("easy-search " + json.dumps(res))
+    if pst["queries"] != n_queries or n_hits == 0:
+        raise AssertionError("the easy-search run wrote no results")
+
+    # the first queries once more with the CPU requested (plain versions)
+    with open(WORK / "queries.fasta") as f:
+        records = f.read().split(">")[1:]
+    with open(WORK / "queries_check.fasta", "w") as f:
+        f.write("".join(">" + r for r in records[:n_check]))
+    t0 = time.perf_counter()
+    run_cli(["easy-search", WORK / "queries_check.fasta",
+             WORK / "targets.fasta", WORK / "es_cpu.m8", WORK / "es_cpu_tmp"],
+            cpu=True)
+    cpu = m8_by_query(WORK / "es_cpu.m8")
+    first = [r.split(None, 1)[0] for r in records[:n_check]]
+    bad = [q for q in first if cpu.get(q) != got.get(q)]
+    log(f"easy-search CPU cross-check: first {n_check} queries "
+        f"({sum(len(v) for v in cpu.values())} lines), {len(bad)} differ, "
+        f"CPU run {time.perf_counter() - t0:.2f} s")
+    if bad or not cpu:
+        raise AssertionError(f"card and CPU easy-search differ for queries "
+                             f"{bad[:10]}")
+
+    trace = phase_trace(
+        "prefilter", ["prefilter", tmp / "query", tmp / "target",
+                      WORK / "pref_traced", "-s", "5.7"],
+        WORK / "pref_traced", tmp / "search_tmp" / "pref_0",
+        steps["prefilter"])
+    return res, trace
 
 
 def main():
@@ -499,39 +811,62 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
+    from concurrent.futures import ThreadPoolExecutor
     from mmseqs2_tpu_torch.ops import kernels
     t0 = time.perf_counter()
-    report = kernels.build("sw")
-    log(f"build: csrc/sw.cu in {time.perf_counter() - t0:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas sw: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        reports = list(pool.map(kernels.build, KERNEL_SOURCES))
+    log(f"build: {', '.join(f'csrc/{n}.cu' for n in KERNEL_SOURCES)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, report in zip(KERNEL_SOURCES, reports):
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
     # 3. kernels against their plain versions
     rows = phase_kernels(rng)
+    rrows = phase_rescore_kernel(rng)
 
     # 4. golden parity on the card
     phase_golden()
+    phase_golden_search()
 
-    # 5. the main path at real size, then a traced rerun
+    # 5. the align stage alone at real size, then a traced rerun
     real = phase_real_size(rng)
-    phase_trace(real["wall_s"])
+    phase_trace("align", ["align", WORK / "qdb", WORK / "tdb", WORK / "pref",
+                          WORK / "aln_traced", "-a"],
+                WORK / "aln_traced", WORK / "aln", real["wall_s"])
 
-    # 6. kernels line
+    # 6. the main path at real size: easy-search, then a traced prefilter
+    easy, _ = phase_easy_search()
+
+    # 7. kernels line; launches are those of the easy-search run
     rep = next(r for c, r in rows if c["nq"] == 16 and c["lq"] == 512
                and c["lt"] == 512 and not c["reverse"] and c["go"] == 11
                and not c.get("negative") and not c.get("big"))
+    rrep = next(r for c, r in rrows if c["n_cand"] == 1 << 17
+                and "slots" not in c)
     kern = [dict(
         name="sw_multi", route="cuda",
         source="mmseqs2_tpu_torch/csrc/sw.cu",
         replaces="mmseqs2_tpu/ops/pallas_sw.py:106",
-        launches=real["launches"],
+        launches=easy["launches"]["sw_multi"],
+        launches_align_only=real["launches"],
         max_abs_err=max(r["max_abs_err"] for _, r in rows),
         ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
         bound_by=rep["bound_by"], library_ms=None,
         equal=all(r["equal"] for _, r in rows),
-        at=rep["case"])]
+        at=rep["case"]), dict(
+        name="diag_rescore", route="cuda",
+        source="mmseqs2_tpu_torch/csrc/rescore.cu",
+        replaces="mmseqs2_tpu/prefilter/pallas_rescore.py:38",
+        launches=easy["launches"]["diag_rescore"],
+        max_abs_err=max(r["max_abs_err"] for _, r in rrows),
+        ms=rrep["ms"], plain_ms=rrep["plain_ms"], bound_ms=rrep["bound_ms"],
+        bound_by=rrep["bound_by"], library_ms=None,
+        equal=all(r["equal"] for _, r in rrows),
+        at=rrep["case"])]
     shutil.rmtree(WORK)
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(f"card: {card}")

@@ -11,7 +11,10 @@ import importlib
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
+CAT_MAIN = "Easy workflows (for non-experts)"
+CAT_WORKFLOW = "Main workflows"
 CAT_CORE = "Core modules"
+CAT_UTIL = "Utility modules"
 CAT_DB = "Database management"
 
 
@@ -33,12 +36,25 @@ class Command:
 
 
 COMMANDS: List[Command] = [
+    Command("easy-search", "easy_search", "easy_search", CAT_MAIN,
+            "Sensitive homology search (FASTA in, BLAST-tab out)",
+            "easy-search <queryFasta> <targetFastaOrDB> <outFile> <tmpDir>",
+            4, 0),
+    Command("search", "search", "search", CAT_WORKFLOW,
+            "Sensitive homology search",
+            "search <queryDB> <targetDB> <alnDB> <tmpDir>", 4, 4),
     Command("createdb", "createdb", "createdb", CAT_DB,
             "Convert FASTA/Q to a sequence DB",
             "createdb <fasta[.gz|.bz2]> ... <seqDB>", 2, 0),
     Command("align", "align_cmd", "align", CAT_CORE,
             "Smith-Waterman gapped alignment of prefilter results",
             "align <queryDB> <targetDB> <prefDB> <alnDB>", 4, 4),
+    Command("prefilter", "prefilter_kmer", "prefilter_kmer", CAT_CORE,
+            "K-mer inverted-index double-diagonal prefilter",
+            "prefilter <queryDB> <targetDB> <prefDB>", 3, 3),
+    Command("convertalis", "convertalis", "convertalis", CAT_UTIL,
+            "Convert an alignment DB to BLAST-tab/SAM",
+            "convertalis <queryDB> <targetDB> <alnDB> <outFile>", 4, 4),
 ]
 
 _BY_NAME = {c.name: c for c in COMMANDS}

@@ -126,7 +126,7 @@ def test_entry_point_needs_cuda_or_cpu_request(tmp_path, monkeypatch):
 
 
 def test_unported_paths_say_so(tmp_path, on_cpu, capsys):
-    assert cli.main(["search", "a", "b", "c", "d"]) == 1
+    assert cli.main(["cluster", "a", "b", "c"]) == 1
     assert "not yet ported" in capsys.readouterr().err
     nucl = REPO / "tests" / "golden" / "nucl"
     with pytest.raises(NotImplementedError, match="not yet ported"):

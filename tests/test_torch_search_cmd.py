@@ -1,0 +1,283 @@
+"""The port's `prefilter`, `search`, `convertalis` and `easy-search`
+(`python -m mmseqs2_tpu_torch`) against the reference MMseqs2 goldens of
+tests/golden/toy, with the CPU requested: prefilter entries equal key by
+key, convertalis byte-identical, easy-search equal line for line. Also: the
+easy-search command loads neither JAX nor the JAX package, and every branch
+that is not ported says so and exits 1."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from mmseqs2_tpu_torch import cli
+from mmseqs2_tpu_torch.commands import prefilter_kmer
+from mmseqs2_tpu_torch.db.reader import DBReader
+from mmseqs2_tpu_torch.db.writer import DBWriter
+from mmseqs2_tpu_torch.device import ENV
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+GOLDEN = REPO / "tests" / "golden" / "toy"
+N_SUBSET = 12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers per machine, and
+    PyTorch's default of one thread per core oversubscribes it badly."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def on_cpu(monkeypatch):
+    monkeypatch.setenv(ENV, "cpu")
+
+
+def run(args):
+    assert cli.main([str(a) for a in args]) == 0
+
+
+def entries_by_key(path):
+    with DBReader(str(path)) as r:
+        return {r.get_db_key(i): r.get_data(i) for i in range(r.size)}
+
+
+def subset_db(tmp_path, keys, name="qsub"):
+    """The golden query DB (sequences and headers) restricted to `keys`."""
+    out = str(tmp_path / name)
+    for suffix in ("", "_h"):
+        with DBReader(str(GOLDEN / "qdb") + suffix) as r, \
+                DBWriter(out + suffix, r.base_type, r.extended_type) as w:
+            for k in keys:
+                w.write(k, r.get_data(r.get_id(k)))
+    return out
+
+
+def toy_records():
+    return (GOLDEN / "QUERY.fasta").read_text().split(">")[1:]
+
+
+def test_kmer_prefilter_self_parity(tmp_path, on_cpu):
+    """Self-search (sameDB): identity hits injected with USHRT_MAX score."""
+    keys = list(range(N_SUBSET))
+    sub = subset_db(tmp_path, keys)
+    prefilter_kmer.reset_stats()
+    run(["prefilter", sub, sub, tmp_path / "prefself"])
+    got = entries_by_key(tmp_path / "prefself")
+    want = entries_by_key(GOLDEN / "prefself")
+    for k in keys:
+        assert got[k] == want[k], f"query {k}:\n{got[k]!r}\n!=\n{want[k]!r}"
+    st = prefilter_kmer.STATS
+    assert st["queries"] == N_SUBSET and st["flushes"] >= 1
+    assert st["hits"] == sum(v.count(b"\n") for v in got.values())
+
+
+@pytest.mark.slow
+def test_kmer_prefilter_parity(tmp_path, on_cpu):
+    """12 queries (distinct query DB) vs the full 500-sequence target DB at
+    the default sensitivity, against the golden `prefsub`."""
+    keys = list(range(N_SUBSET))
+    sub = subset_db(tmp_path, keys)
+    run(["prefilter", sub, GOLDEN / "qdb", tmp_path / "pref"])
+    got = entries_by_key(tmp_path / "pref")
+    want = entries_by_key(GOLDEN / "prefsub")
+    for k in keys:
+        assert got[k] == want[k], f"query {k}:\n{got[k]!r}\n!=\n{want[k]!r}"
+
+
+def test_prefilter_without_diagonal_scoring_runs_the_host_matcher(
+        tmp_path, on_cpu):
+    sub = subset_db(tmp_path, range(4))
+    prefilter_kmer.reset_stats()
+    run(["prefilter", sub, sub, tmp_path / "pref", "--diag-score", "0"])
+    assert prefilter_kmer.STATS["flushes"] == 0      # no device flush
+    got = entries_by_key(tmp_path / "pref")
+    for k in range(4):
+        assert got[k].split(b"\t")[0] == str(k).encode()
+
+
+def test_convertalis_parity(tmp_path, on_cpu):
+    out = tmp_path / "aln.m8"
+    run(["convertalis", GOLDEN / "qdb", GOLDEN / "qdb", GOLDEN / "aln", out])
+    assert out.read_text() == (GOLDEN / "aln.m8").read_text()
+
+
+def test_convertalis_sam_matches_the_jax_package(tmp_path, on_cpu):
+    from mmseqs2_tpu.params import Params
+    from mmseqs2_tpu.registry import get_command
+    args = [str(GOLDEN / "qdb"), str(GOLDEN / "qdb"), str(GOLDEN / "aln")]
+    run(["convertalis", *args, tmp_path / "port.sam", "--format-mode", "1"])
+    cmd = get_command("convertalis")
+    par = Params().parse([*args, str(tmp_path / "jax.sam"), "--format-mode",
+                          "1"], cmd, cmd.min_db, cmd.max_db)
+    assert cmd.load()(par, cmd) == 0
+    assert (tmp_path / "port.sam").read_text() == \
+        (tmp_path / "jax.sam").read_text()
+
+
+def test_easy_search_matches_golden_lines(tmp_path, on_cpu):
+    """easy-search of the first toy queries against the whole toy set: each
+    query's lines equal the golden self-search's lines for that query (a
+    query's result depends on the target DB only; the identity hit is found
+    through the key lookup in both, since the FASTA headers agree)."""
+    n = 8
+    records = toy_records()
+    (tmp_path / "q.fasta").write_text("".join(">" + r for r in records[:n]))
+    out = tmp_path / "out.m8"
+    run(["easy-search", tmp_path / "q.fasta", GOLDEN / "QUERY.fasta", out,
+         tmp_path / "tmp"])
+    got = sorted(out.read_text().splitlines())
+    names = {line.split("\t")[0] for line in got}
+    assert len(names) == n
+    want = sorted(line for line in
+                  (GOLDEN / "golden_self.m8").read_text().splitlines()
+                  if line.split("\t")[0] in names)
+    assert got == want
+    assert not (tmp_path / "tmp").exists()      # --remove-tmp-files default
+
+
+def test_search_sensitivity_steps_merge(tmp_path, on_cpu):
+    """blastp.sh's stepped search: queries without a hit at the low
+    sensitivity go on to the next step; the merged DB holds each query's
+    entry from the step that matched it."""
+    qsub = subset_db(tmp_path, range(N_SUBSET))
+    tsub = subset_db(tmp_path, range(100, 500), "tsub")
+    tmp = tmp_path / "tmp"
+    run(["search", qsub, tsub, tmp_path / "aln", tmp, "--start-sens", "1",
+         "--sens-steps", "2", "-s", "5.7", "--remove-tmp-files", "0"])
+    merged = entries_by_key(tmp_path / "aln")
+    step0, step1 = entries_by_key(tmp / "aln_0"), entries_by_key(tmp / "aln_1")
+    assert sorted(merged) == list(range(N_SUBSET))
+    assert set(step1) == {k for k, v in step0.items() if not v}
+    assert step1 and len(step1) < N_SUBSET
+    for k in merged:
+        assert merged[k] == step0[k] + step1.get(k, b"")
+    # one step at the target sensitivity equals the JAX package's goldens'
+    # way of calling it: prefilter -s 5.7, then align
+    run(["search", qsub, tsub, tmp_path / "aln1", tmp_path / "tmp1"])
+    single = entries_by_key(tmp_path / "aln1")
+    for k, v in step1.items():
+        assert single[k] == v
+
+
+SUBPROCESS_RUN = """
+import sys
+from mmseqs2_tpu_torch.cli import main
+golden, tmp = sys.argv[1], sys.argv[2]
+records = open(golden + "/QUERY.fasta").read().split(">")[1:]
+with open(tmp + "/q.fasta", "w") as f:
+    f.write("".join(">" + r for r in records[:3]))
+with open(tmp + "/t.fasta", "w") as f:
+    f.write("".join(">" + r for r in records[:60]))
+assert main(["easy-search", tmp + "/q.fasta", tmp + "/t.fasta",
+             tmp + "/out.m8", tmp + "/tmp"]) == 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "mmseqs2_tpu"))
+print("LOADED", bad)
+assert not bad, bad
+"""
+
+
+def test_easy_search_loads_no_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env[ENV] = "cpu"
+    r = subprocess.run([sys.executable, "-c", SUBPROCESS_RUN, str(GOLDEN),
+                        str(tmp_path)], env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "LOADED []" in r.stdout
+    assert len((tmp_path / "out.m8").read_text().splitlines()) >= 3
+
+
+NUCL = REPO / "tests" / "golden" / "nucl" / "ndb"
+PROFILE = GOLDEN / "it_profile_0"
+QDB = GOLDEN / "qdb"
+
+UNPORTED = {
+    "prefilter nucleotide": ["prefilter", NUCL, NUCL, "{out}"],
+    "prefilter profile query": ["prefilter", PROFILE, QDB, "{out}"],
+    "prefilter profile target": ["prefilter", QDB, PROFILE, "{out}"],
+    "prefilter --taxon-list": ["prefilter", QDB, QDB, "{out}",
+                               "--taxon-list", "9606"],
+    "prefilter --split 2": ["prefilter", QDB, QDB, "{out}", "--split", "2"],
+    "prefilter automatic split": ["prefilter", QDB, QDB, "{out}",
+                                  "--split-memory-limit", "100K"],
+    "search --exhaustive-search": ["search", QDB, QDB, "{out}", "{tmp}",
+                                   "--exhaustive-search", "1"],
+    "search profile target": ["search", QDB, PROFILE, "{out}", "{tmp}"],
+    "search nucleotide": ["search", NUCL, NUCL, "{out}", "{tmp}",
+                          "--search-type", "3"],
+    "search translated": ["search", NUCL, QDB, "{out}", "{tmp}"],
+    "search --num-iterations 2": ["search", QDB, QDB, "{out}", "{tmp}",
+                                  "--num-iterations", "2"],
+    "search --lca-search": ["search", QDB, QDB, "{out}", "{tmp}",
+                            "--lca-search", "1"],
+    "search --alignment-mode 4": ["search", QDB, QDB, "{out}", "{tmp}",
+                                  "--alignment-mode", "4"],
+    "search --prefilter-mode 1": ["search", QDB, QDB, "{out}", "{tmp}",
+                                  "--prefilter-mode", "1"],
+    "search --prefilter-mode 2": ["search", QDB, QDB, "{out}", "{tmp}",
+                                  "--prefilter-mode", "2"],
+    "easy-search --greedy-best-hits": [
+        "easy-search", GOLDEN / "QUERY.fasta", GOLDEN / "QUERY.fasta",
+        "{out}", "{tmp}", "--greedy-best-hits", "1"],
+    "convertalis html": ["convertalis", QDB, QDB, GOLDEN / "aln", "{out}",
+                         "--format-mode", "3"],
+    "convertalis taxonomy columns": [
+        "convertalis", QDB, QDB, GOLDEN / "aln", "{out}", "--format-output",
+        "query,target,taxid"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED))
+def test_unported_branch_says_so(tmp_path, on_cpu, name):
+    args = [str(a).format(out=tmp_path / "out", tmp=tmp_path / "tmp")
+            for a in UNPORTED[name]]
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.main(args)
+    assert not (tmp_path / "out").exists()
+    assert not (tmp_path / "out.dbtype").exists()
+
+
+def test_unported_branch_exits_1(tmp_path):
+    """From the shell an unported branch ends with exit code 1 and the
+    words "not yet ported", and runs nothing else instead."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env[ENV] = "cpu"
+    r = subprocess.run(
+        [sys.executable, "-m", "mmseqs2_tpu_torch", "prefilter", str(QDB),
+         str(QDB), str(tmp_path / "pref"), "--split", "3"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 1
+    assert "not yet ported (see ROADMAP.md)" in r.stderr
+    assert not (tmp_path / "pref.dbtype").exists()
+    r = subprocess.run(
+        [sys.executable, "-m", "mmseqs2_tpu_torch", "cluster", "a", "b", "c"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 1 and "not yet ported" in r.stderr
+
+
+def test_score_table_cache_is_the_ports_own(tmp_path, monkeypatch):
+    """The port's k-mer score tables are cached under a directory named
+    after the port, never under the JAX package's."""
+    import numpy as np
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    from mmseqs2_tpu_torch.prefilter.kmer_generator import SubKmerScores
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    monkeypatch.delenv("MMSEQS2_TPU_TORCH_CACHE", raising=False)
+    seed = get_submat("VTML80.out", 8.0, -0.2)
+    two = SubKmerScores(seed.sub_matrix, 20, 2).attach_disk_cache()
+    files = sorted(p.name for p in
+                   (tmp_path / "cache" / "mmseqs2_tpu_torch").iterdir())
+    assert len(files) == 3 and all(f.startswith("subk2_") for f in files)
+    again = SubKmerScores(seed.sub_matrix, 20, 2).attach_disk_cache()
+    assert np.array_equal(np.asarray(again._scores), np.asarray(two._scores))
+    monkeypatch.setenv("MMSEQS2_TPU_TORCH_CACHE", "off")
+    SubKmerScores(seed.sub_matrix, 20, 2).attach_disk_cache()
+    assert len(list((tmp_path / "cache" / "mmseqs2_tpu_torch").iterdir())) == 3
