@@ -13,20 +13,29 @@ caught. Phases, each printing lines before the last:
      from CUDA events (median), cells per second over the cells the inputs
      need, and the card's bound for those cells. sw_multi at the align
      stage's shapes, diag_rescore at the prefilter's (2^10 to 2^17
-     candidates, windows of real protein lengths, edge cases);
+     candidates, windows of real protein lengths, edge cases), the gapless
+     scan in both forms (gapless, gapless_score) and the single-profile SW
+     entry points (sw_single, sw_offset, sw_score) at the shapes the
+     exhaustive prefilter launches (one profile, Lq 128 to 2,048, Lt
+     buckets 256 to 2,048, 4,096 and 16,384 lanes, small and large bias, a
+     case that saturates at the cap, all-negative);
   4. golden parity: the port's `align` on the 500-query toy set equals the
      reference MMseqs2 goldens (tests/golden/toy, tests/golden/alt): default
      and non-default scoring, --realign, --alt-ali, --corr-score-weight;
      the port's `prefilter` of the toy set against itself equals the goldens
      at the default sensitivity and at -s 5.7 on all 500 queries, and
      `easy-search QUERY.fasta QUERY.fasta` equals golden_self.m8;
+     `ungappedprefilter` of the toy set against itself equals the golden
+     `upref` on all 500 queries, `makepaddedseqdb` the golden padded DB
+     byte for byte; with a `gpuserver` (a subprocess) on that padded DB,
+     `ungappedprefilter --gpu 1` and `gappedprefilter --gpu 1` give the
+     bytes of the runs without a server; `search --prefilter-mode 1` runs
+     and its first queries' entries equal a run with the CPU requested;
   5. real size, align only: `createdb` + `align -a` on N_TARGETS
      SwissProt-like targets and 1,000 queries with 300 synthetic prefilter
      candidates each (300,000 pairs), data made from a seed; launch counts
      taken over this run; the first 32 queries' results equal a run with
-     the CPU requested (plain versions); then the same align once more
-     under torch.profiler: the card's busy and idle shares, device time by
-     kernel, tracing overhead;
+     the CPU requested (plain versions);
   6. real size, the main path: `easy-search` of the same 1,000 queries
      against the same targets, from the FASTA files through createdb,
      prefilter, align and convertalis, no synthetic prefilter DB; every
@@ -37,7 +46,20 @@ caught. Phases, each printing lines before the last:
      torch.profiler. (Phase 4's prefilter runs also show that a flush is
      dispatched with no synchronisation: PyTorch's sync debug mode raises
      on one);
-  7. one JSON line listing every kernel;
+  7. real size, the exhaustive prefilter: `ungappedprefilter` of the 1,000
+     queries against the same targets (--max-seqs 300), counts set to 0
+     just before and read just after: wall, queries/s, cells/s end to end,
+     the split of the wall (upload, kernels by CUDA events, waiting for
+     read-backs, host filter and write), launches and read-backs per query;
+     the first 32 queries held against a run with the CPU requested on the
+     first 500 targets (a cut for time: every hit of the card's run on
+     those targets must be the CPU's, and every CPU hit that ranks inside
+     the card's list must be in it); once more under torch.profiler for the
+     busy and idle shares; then the same through a resident `gpuserver` on
+     the padded target DB (start-up apart; the first 100 queries equal to a
+     local run on that DB), and `gappedprefilter` on the first 100 queries
+     (a cut for time), with a sub-DB run equal on the card and the CPU;
+  8. one JSON line listing every kernel;
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA card or outside a checkout of the repository.
 """
@@ -59,7 +81,7 @@ GOLDEN = ROOT / "tests" / "golden" / "toy"
 WORK = ROOT / ".smoke_work"
 SEED = 20261016
 # every kernel source of the port, csrc/<name>.cu: a new kernel adds a name
-KERNEL_SOURCES = ("sw", "rescore")
+KERNEL_SOURCES = ("sw", "rescore", "gapless")
 # targets of the real-size phases: the size of the reference's small bench
 # run (experiments/make_scale_db.py); the 1,000 queries stay
 N_TARGETS = 50_000
@@ -79,6 +101,10 @@ SW_OPS_PER_CELL = 6
 # least: the score (lookup plus correction), the add-max-relu step of the
 # running sum, the running best
 RESCORE_OPS_PER_CELL = 3
+# int32 instructions one gapless cell needs at the least (csrc/gapless.cu):
+# the add and the max with 0 in one __viaddmax_s32_relu, the cap, the
+# running best with tracking; without tracking the cap goes
+GAPLESS_OPS_PER_CELL = {"gapless": 3, "gapless_score": 2}
 
 
 def log(msg):
@@ -241,6 +267,174 @@ def phase_kernels(rng):
                                  f"{name} (max abs err {err})")
         rows.append((c, row))
     return rows
+
+
+def single_case(rng, submat, lq, lt, lanes, kind="normal"):
+    """Inputs of one launch of the exhaustive prefilter: one query profile
+    of the Lq bucket and `lanes` targets of the Lt bucket, pad letter 31,
+    half of them mutated fragments of the query. "saturate" plants the
+    query itself at varying offsets, so that the running score reaches the
+    cap early and stays there (the first-column rule decides the end);
+    "negative" scores every cell below 0. Also returns the query's real
+    length and the targets' real lengths (cells = their product, summed)."""
+    from mmseqs2_tpu_torch.ops.encode import make_query_profile
+    mat = submat.sub_matrix.astype(np.int32)
+    aa_idx = np.array([submat.aa2num[c] for c in AA])
+    n = int(rng.integers(lq // 2 + 1, lq + 1))
+    q = aa_idx[rng.choice(20, size=n, p=PBACK)]
+    prof = make_query_profile(q, mat, None, pad_len=lq, alpha_pad=32)
+    if kind == "negative":
+        prof = np.where(prof > -(1 << 20), -1 - np.abs(prof) % 7, prof)
+    tb = np.full((lt, lanes), 31, np.int8)
+    tlen = rng.integers(lt // 2 + 1, lt + 1, size=lanes)
+    for b in range(lanes):
+        m = int(tlen[b])
+        t = aa_idx[rng.choice(20, size=m, p=PBACK)]
+        if kind == "saturate":
+            k = min(n, m - 8)
+            o = b % 8
+            t[o:o + k] = q[:k]
+        elif b % 2 == 0:
+            k = min(n, m)
+            frag = q[:k].copy()
+            mut = rng.random(k) < 0.3
+            frag[mut] = aa_idx[rng.choice(20, size=int(mut.sum()), p=PBACK)]
+            t[:k] = frag
+        tb[:m, b] = t
+    return np.ascontiguousarray(prof.astype(np.int32)), tb, n, tlen
+
+
+def single_bound_ms(lq, lt, lanes, cells, ops_per_cell, n_out, n_in=0):
+    """Least time of one single-profile launch: `cells` at ops_per_cell
+    int32 operations, or its bytes (the profile, the target letters, n_in
+    int32 per lane in and n_out out), whichever takes longer."""
+    ops_s = cells * ops_per_cell / INT32_OPS_PER_S
+    nbytes = 32 * lq * 4 + lt * lanes + 4 * lanes * (n_in + n_out)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def phase_exhaustive_kernels(rng):
+    """gapless and gapless_score, then sw_single, sw_offset and sw_score,
+    against their plain versions on the card at the shapes the exhaustive
+    prefilter launches. Returns {kernel name: [(case, row), ...]}."""
+    import torch
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    from mmseqs2_tpu_torch.ops import gapless as gl
+    from mmseqs2_tpu_torch.ops import sw
+    submat = get_submat("blosum62.out", 2.0, 0.0)
+    out = {k: [] for k in ("gapless", "gapless_score", "sw_single",
+                           "sw_offset", "sw_score")}
+
+    def tuple_of(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    def sentinels(lq):
+        """An all-negative lane reports (0, lq - 1, -1)."""
+        return lambda got: bool((got[0] == 0).all()) and (len(got) == 1 or (
+            bool((got[1] == lq - 1).all()) and bool((got[2] == -1).all())))
+
+    def compare(name, kernel, plain, args, kw, c, label, cells, bound,
+                extra_ok=None):
+        got, want = tuple_of(kernel(*args, **kw)), tuple_of(plain(*args, **kw))
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        if extra_ok is not None:
+            equal = equal and extra_ok(got)
+        ms = time_ms(lambda: kernel(*args, **kw), 5)
+        plain_ms = time_ms(lambda: plain(*args, **kw), 2)
+        padded = c["lanes"] * c["lq"] * c["lt"]
+        row = dict(kernel=name, case=label, equal=equal, max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, cells_real=cells,
+                   cells_padded=padded, gcells_real=cells / ms / 1e6,
+                   gcells_padded=padded / ms / 1e6, bound_ms=bound[0],
+                   bound_by=bound[1], bound_share=bound[0] / ms,
+                   max_score=int(got[0].max()))
+        log("kernel-case " + json.dumps(row))
+        if not equal:
+            raise AssertionError(f"{name} differs from its plain version: "
+                                 f"{label} (max abs err {err})")
+        out[name].append((c, row))
+        return got
+
+    gapless_cases = [
+        dict(lq=128, lt=256, lanes=16384, cap=251),
+        dict(lq=256, lt=512, lanes=16384, cap=251),
+        dict(lq=512, lt=512, lanes=16384, cap=251),
+        dict(lq=512, lt=1024, lanes=4096, cap=251),
+        dict(lq=1024, lt=2048, lanes=4096, cap=251),
+        dict(lq=2048, lt=512, lanes=4096, cap=251),     # strip-mined
+        dict(lq=512, lt=512, lanes=4096, cap=255 - 100),    # large bias
+        dict(lq=512, lt=512, lanes=4096, cap=251, kind="saturate"),
+        dict(lq=512, lt=512, lanes=4096, cap=251, kind="negative"),
+    ]
+    for c in gapless_cases:
+        kind = c.get("kind", "normal")
+        prof, tb, qlen, tlen = single_case(rng, submat, c["lq"], c["lt"],
+                                           c["lanes"], kind)
+        cells = int(qlen * tlen.sum())
+        args = [torch.from_numpy(a).cuda() for a in (prof, tb)]
+        label = (f"lq={c['lq']} lt={c['lt']} lanes={c['lanes']} "
+                 f"cap={c['cap']}" + ("" if kind == "normal" else f" {kind}"))
+        ok = sentinels(c["lq"]) if kind == "negative" else None
+        tracked = compare(
+            "gapless", gl.gapless, gl.gapless_plain, args,
+            dict(cap=c["cap"]), c, label, cells, single_bound_ms(
+                c["lq"], c["lt"], c["lanes"], cells,
+                GAPLESS_OPS_PER_CELL["gapless"], 3), ok)
+        score = compare(
+            "gapless_score", gl.gapless_score, gl.gapless_score_plain, args,
+            dict(cap=c["cap"]), c, label, cells, single_bound_ms(
+                c["lq"], c["lt"], c["lanes"], cells,
+                GAPLESS_OPS_PER_CELL["gapless_score"], 1), ok)
+        if not torch.equal(score[0], tracked[0]):
+            raise AssertionError(f"gapless_score differs from gapless's "
+                                 f"score: {label}")
+        if kind == "saturate":
+            at_cap = float((tracked[0] == c["cap"]).float().mean())
+            log(f"  saturate: {at_cap:.3f} of the lanes end at the cap")
+            if at_cap < 0.9:
+                raise AssertionError("the saturating case does not saturate")
+
+    sw_cases = [
+        dict(lq=256, lt=512, lanes=4096, go=11, ge=1),
+        dict(lq=512, lt=512, lanes=16384, go=11, ge=1),
+        dict(lq=1024, lt=2048, lanes=4096, go=11, ge=1),
+        dict(lq=2048, lt=512, lanes=1024, go=11, ge=1),     # strip-mined
+        dict(lq=512, lt=512, lanes=4096, go=13, ge=2, kind="negative"),
+    ]
+    for c in sw_cases:
+        kind = c.get("kind", "normal")
+        prof, tb, qlen, tlen = single_case(rng, submat, c["lq"], c["lt"],
+                                           c["lanes"], kind)
+        qoff = rng.integers(0, qlen, size=c["lanes"]).astype(np.int32)
+        cells = int(qlen * tlen.sum())
+        cells_off = int(((qlen - qoff) * tlen).sum())
+        prof_d, tb_d, qoff_d = [torch.from_numpy(a).cuda()
+                                for a in (prof, tb, qoff)]
+        kw = dict(go=c["go"], ge=c["ge"])
+        label = (f"lq={c['lq']} lt={c['lt']} lanes={c['lanes']} "
+                 f"go/ge={c['go']}/{c['ge']}"
+                 + ("" if kind == "normal" else f" {kind}"))
+        dims = (c["lq"], c["lt"], c["lanes"])
+        ok = sentinels(c["lq"]) if kind == "negative" else None
+        single = compare("sw_single", sw.sw_single, sw.sw_single_plain,
+                         [prof_d, tb_d], kw, c, label, cells,
+                         single_bound_ms(*dims, cells, SW_OPS_PER_CELL, 3),
+                         ok)
+        compare("sw_offset", sw.sw_offset, sw.sw_offset_plain,
+                [prof_d, tb_d, qoff_d], kw, c, label, cells_off,
+                single_bound_ms(*dims, cells_off, SW_OPS_PER_CELL, 3, 1), ok)
+        score = compare("sw_score", sw.sw_score, sw.sw_score_plain,
+                        [prof_d, tb_d], kw, c, label, cells,
+                        single_bound_ms(*dims, cells, SW_OPS_PER_CELL, 1), ok)
+        if not torch.equal(score[0], single[0]):
+            raise AssertionError(f"sw_score differs from sw_single's score: "
+                                 f"{label}")
+    return out
 
 
 def rescore_store(rng, n_t=N_TARGETS, n_q=128):
@@ -491,6 +685,168 @@ def phase_golden_search():
         f"{wall:.2f} s")
     if got != want:
         raise AssertionError("easy-search differs from golden_self.m8")
+
+
+def sub_db(src, n, dst):
+    """The first n entries of a sequence DB (and of its header DB)."""
+    from mmseqs2_tpu_torch.db.reader import DBReader
+    from mmseqs2_tpu_torch.db.writer import DBWriter
+    for suffix in ("", "_h"):
+        with DBReader(f"{src}{suffix}") as r, \
+                DBWriter(f"{dst}{suffix}", r.base_type, r.extended_type) as w:
+            for i in range(min(n, r.size)):
+                w.write(r.get_db_key(i), r.get_data(i))
+    return dst
+
+
+@contextlib.contextmanager
+def gpuserver(pad):
+    """A resident server for the padded DB `pad`, started as a subprocess on
+    the card. Yields the seconds it took to come up; on the way out it is
+    asked to shut down and must exit with 0. It is killed if anything in
+    between raised, and the exception goes on."""
+    from mmseqs2_tpu_torch.server import device_server
+    sock = device_server.socket_path_for(str(pad))
+    if os.path.exists(sock):
+        os.unlink(sock)         # left behind by a run that was cut
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               MMSEQS2_TPU_TORCH_DEVICE="cuda")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mmseqs2_tpu_torch", "gpuserver", str(pad)],
+        env=env, cwd=ROOT, stdout=subprocess.DEVNULL)
+    try:
+        while not os.path.exists(sock):
+            if proc.poll() is not None:
+                raise RuntimeError(f"gpuserver exited {proc.returncode}")
+            if time.perf_counter() - t0 > 300:
+                raise RuntimeError("gpuserver did not come up in 300 s")
+            time.sleep(0.05)
+        yield time.perf_counter() - t0
+        if not device_server.shutdown_server(str(pad)):
+            raise RuntimeError("gpuserver was gone before its shutdown")
+        if proc.wait(timeout=120) != 0:
+            raise RuntimeError(f"gpuserver exited {proc.returncode}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        if os.path.exists(sock):
+            os.unlink(sock)
+
+
+# A padded DB holds numeric codes, which both packages read through the ASCII
+# table: every target letter becomes X and every score 0 (ROADMAP.md C). The
+# runs against a padded DB open the thresholds, so that the compared entries
+# hold hits.
+WIDE = ["--min-ungapped-score", "-1", "-e", "1e30"]
+
+
+def phase_golden_exhaustive(rng):
+    """The exhaustive prefilter path on the toy set, on the card."""
+    from mmseqs2_tpu_torch.commands import prefilter_cmd
+    from mmseqs2_tpu_torch.commands.common import EncodedDB, open_seq_db
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    from mmseqs2_tpu_torch.server import device_server
+    qdb = GOLDEN / "qdb"
+    out = WORK / "golden_upref"
+    prefilter_cmd.reset_stats()
+    t0 = time.perf_counter()
+    run_cli(["ungappedprefilter", qdb, qdb, out])
+    wall = time.perf_counter() - t0
+    got, want = entries(out), entries(GOLDEN / "upref")
+    bad = [k for k in want if got.get(k) != want[k]]
+    st = prefilter_cmd.STATS
+    log(f"golden ungappedprefilter: {len(want)} queries, {len(bad)} differ, "
+        f"{st['hits']} hits, {st['launches']} launches and "
+        f"{st['readbacks']} read-backs, {wall:.2f} s")
+    if bad or len(got) != len(want):
+        raise AssertionError(f"golden parity (upref) fails for queries "
+                             f"{bad[:10]}")
+
+    pad = WORK / "toy_pad"
+    t0 = time.perf_counter()
+    run_cli(["makepaddedseqdb", qdb, pad])
+    gold = ROOT / "tests" / "golden" / "dbops" / "padded"
+    bad = [suf for suf in ("", ".index", ".dbtype", ".lookup", "_h",
+                           "_h.index", "_h.dbtype")
+           if pathlib.Path(f"{pad}{suf}").read_bytes()
+           != pathlib.Path(f"{gold}{suf}").read_bytes()]
+    log(f"golden makepaddedseqdb: 7 files, {len(bad)} differ, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if bad:
+        raise AssertionError(f"makepaddedseqdb differs from the golden "
+                             f"padded DB in {bad}")
+
+    # a resident server on the padded DB: the commands through it (the
+    # first 100 queries: phase 7 sends a server 1,000), and one seeded
+    # random profile (scores above 0 against all-X targets) in both modes,
+    # against the same work done here
+    cmds = ("ungappedprefilter", "gappedprefilter")
+    prof = rng.integers(-4, 8, size=(32, 256)).astype(np.int32)
+    q100 = sub_db(qdb, 100, WORK / "toy_q100")
+    with gpuserver(pad) as startup_s:
+        t0 = time.perf_counter()
+        for cmd in cmds:
+            run_cli([cmd, q100, pad, WORK / f"toy_{cmd}_srv", "--gpu", "1",
+                     *WIDE])
+        srv_wall = time.perf_counter() - t0
+        srv_scores = [device_server.query_server(str(pad), prof, 251, mode)
+                      for mode in (0, 1)]
+        pong = device_server.ping_server(str(pad))
+    t0 = time.perf_counter()
+    for cmd in cmds:
+        run_cli([cmd, q100, pad, WORK / f"toy_{cmd}_loc", *WIDE])
+    loc_wall = time.perf_counter() - t0
+    n_lines = 0
+    for cmd in cmds:
+        a, b = entries(WORK / f"toy_{cmd}_srv"), entries(WORK / f"toy_{cmd}_loc")
+        n_lines += sum(v.count(b"\n") for v in b.values())
+        if a != b or not all(b.values()):
+            raise AssertionError(f"{cmd} --gpu 1 differs from the run "
+                                 f"without a server")
+    store = prefilter_cmd.TargetStore(
+        EncodedDB(open_seq_db(str(pad)), get_submat("blosum62.out", 2.0, 0.0)),
+        "cuda")
+    for mode, srv in zip((0, 1), srv_scores):
+        loc = store.in_db_order(
+            store.scan(prof, 251, mode, 11, 1).cpu().numpy())
+        if not np.array_equal(loc, srv) or loc.max() <= 0:
+            raise AssertionError(f"the server's scores (mode {mode}) differ "
+                                 f"from a local scan")
+    log(f"golden gpuserver: up in {startup_s:.2f} s, both commands with "
+        f"--gpu 1 in {srv_wall:.2f} s equal the runs without a server "
+        f"({loc_wall:.2f} s, {n_lines} lines); a random profile's scores "
+        f"equal a local scan in both modes; the server launched "
+        f"{json.dumps(pong['launches'])}")
+    if min(pong["launches"].values()) <= 0:
+        raise AssertionError("the server launched no kernel")
+
+    # search --prefilter-mode 1: ungappedprefilter in the prefilter's place
+    n_check = 2
+    t0 = time.perf_counter()
+    run_cli(["search", qdb, qdb, WORK / "toy_search1",
+             WORK / "toy_search1_tmp", "--prefilter-mode", "1"])
+    wall = time.perf_counter() - t0
+    got = entries(WORK / "toy_search1")
+    q_chk = sub_db(qdb, n_check, WORK / "toy_q_chk")
+    t0 = time.perf_counter()
+    # (the sub-DB has another path than the target DB: --add-self-matches
+    # keeps the self hit on scoreIdentical's route, as the same path does)
+    run_cli(["search", q_chk, qdb, WORK / "toy_search1_cpu",
+             WORK / "toy_search1_cpu_tmp", "--prefilter-mode", "1",
+             "--add-self-matches", "1"], cpu=True)
+    cpu = entries(WORK / "toy_search1_cpu")
+    bad = [k for k in cpu if cpu[k] != got.get(k)]
+    log(f"search --prefilter-mode 1: {len(got)} queries, "
+        f"{sum(v.count(b'\n') for v in got.values())} alignments, "
+        f"{wall:.2f} s; first {n_check} queries "
+        f"({sum(v.count(b'\n') for v in cpu.values())} alignments) equal a "
+        f"run with the CPU requested: {len(bad)} differ, CPU run "
+        f"{time.perf_counter() - t0:.2f} s")
+    if bad or len(cpu) != n_check or len(got) != 500 or not all(cpu.values()):
+        raise AssertionError(f"search --prefilter-mode 1 differs on the card "
+                             f"and the CPU for queries {bad[:10]}")
 
 
 def lengths(rng, n):
@@ -783,6 +1139,188 @@ def phase_easy_search(n_queries=1_000, n_check=32):
     return res, trace
 
 
+def pref_hits(data):
+    """[(key, score), ...] of one prefilter entry, in its order."""
+    return [(int(f[0]), int(f[1])) for f in
+            (line.split(b"\t") for line in data.splitlines())]
+
+
+def real_cells(qdb, tdb, n_queries=None):
+    """Cells the exhaustive prefilter needs: query residues (of the first
+    n_queries) times target residues."""
+    from mmseqs2_tpu_torch.db.reader import DBReader
+    with DBReader(str(qdb)) as q, DBReader(str(tdb)) as t:
+        qres = int(q.lengths[:n_queries].sum()) - 2 * len(q.lengths[:n_queries])
+        return qres * t.total_residues()
+
+
+def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
+                     n_check_targets=500, n_gapped=100):
+    """This slice at real size: the exhaustive prefilter of phase 5's query
+    and target DBs, locally, through a resident server and gapped."""
+    import torch
+    from mmseqs2_tpu_torch.commands import prefilter_cmd
+    from mmseqs2_tpu_torch.ops import gapless as gl
+    from mmseqs2_tpu_torch.ops import sw
+    from mmseqs2_tpu_torch.server import device_server
+    qdb, tdb = WORK / "qdb", WORK / "tdb"
+    wrappers = dict(gapless=gl.gapless, gapless_score=gl.gapless_score,
+                    sw_single=sw.sw_single, sw_offset=sw.sw_offset,
+                    sw_score=sw.sw_score)
+
+    def zero_counts():
+        prefilter_cmd.reset_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+
+    def timed(args):
+        t0 = time.perf_counter()
+        run_cli(args)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def report(label, wall, n_q, cells, extra):
+        st = dict(prefilter_cmd.STATS)
+        res = dict(
+            queries=n_q, targets=N_TARGETS, wall_s=wall,
+            queries_per_s=n_q / wall, cells_real=cells,
+            gcells_per_s_end_to_end=cells / wall / 1e9, hits=st["hits"],
+            cells_padded=st["cells_padded"], store_bytes=st["store_bytes"],
+            upload_s=st["store_s"], kernel_s=st["kernel_ms"] / 1e3,
+            readback_wait_s=st["wait_s"], server_s=st["server_s"],
+            host_filter_write_s=st["host_s"],
+            rest_s=wall - st["store_s"] - st["wait_s"] - st["server_s"]
+            - st["host_s"],
+            launches_per_query=st["launches"] / n_q,
+            readbacks_per_query=st["readbacks"] / n_q, **extra)
+        if st["kernel_ms"]:
+            res["gcells_per_s_kernel"] = cells / st["kernel_ms"] / 1e6
+        log(f"{label} " + json.dumps(res))
+        if st["queries"] != n_q:
+            raise AssertionError(f"{label}: {st['queries']} queries, {n_q} "
+                                 f"expected")
+        return res
+
+    # a. ungappedprefilter, all queries: counts set to 0 just before, read
+    # just after
+    cells = real_cells(qdb, tdb)
+    args = ["ungappedprefilter", qdb, tdb, WORK / "upref", "--max-seqs",
+            max_seqs]
+    zero_counts()
+    wall = timed(args)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if launches["gapless"] <= 0:
+        raise AssertionError("the ungappedprefilter run launched no gapless "
+                             "kernel")
+    ungapped = report("ungappedprefilter", wall, n_queries, cells,
+                      dict(launches=launches["gapless"]))
+    got = entries(WORK / "upref")
+    if len(got) != n_queries or ungapped["hits"] == 0:
+        raise AssertionError("the ungappedprefilter run wrote no results")
+
+    # b. the first queries with the CPU requested, against the first
+    # n_check_targets targets (a cut for time) and with no --max-seqs cut:
+    # a pair's score does not depend on the other targets
+    q_chk = sub_db(qdb, n_check, WORK / "q_chk")
+    t_chk = sub_db(tdb, n_check_targets, WORK / "t_chk")
+    t0 = time.perf_counter()
+    run_cli(["ungappedprefilter", q_chk, t_chk, WORK / "upref_cpu",
+             "--max-seqs", 1_000_000], cpu=True)
+    cpu = entries(WORK / "upref_cpu")
+    t_keys = set(entries(t_chk))
+    bad, n_common = [], 0
+    for k in cpu:
+        card, want = pref_hits(got[k]), dict(pref_hits(cpu[k]))
+        seen = {t: s for t, s in card if t in t_keys}
+        n_common += len(seen)
+        ok = all(want.get(t) == s for t, s in seen.items())
+        if len(card) == max_seqs:       # cut: only what ranks inside counts
+            last = (-abs(card[-1][1]), card[-1][0])
+            want = {t: s for t, s in want.items() if (-abs(s), t) <= last}
+        if not ok or want != seen:
+            bad.append(k)
+    log(f"ungappedprefilter CPU cross-check (cut for time: the first "
+        f"{n_check} queries against the first {n_check_targets} targets): "
+        f"{n_common} hits in common, {len(bad)} queries differ, CPU run "
+        f"{time.perf_counter() - t0:.2f} s")
+    if bad or len(cpu) != n_check or n_common == 0:
+        raise AssertionError(f"card and CPU ungappedprefilter differ for "
+                             f"queries {bad[:10]}")
+
+    # c. once more under the profiler
+    trace = phase_trace("ungappedprefilter",
+                        [*args[:3], WORK / "upref_traced", *args[4:]],
+                        WORK / "upref_traced", WORK / "upref", wall)
+
+    # d. through a resident server on the padded target DB; the server's
+    # launches are its own process's, read from its ping
+    pad = WORK / "tdb_pad"
+    t0 = time.perf_counter()
+    run_cli(["makepaddedseqdb", tdb, pad, "--mask", "0"])
+    pad_s = time.perf_counter() - t0
+    srv_args = ["ungappedprefilter", qdb, pad, WORK / "upref_srv",
+                "--max-seqs", max_seqs, *WIDE]
+    with gpuserver(pad) as startup_s:
+        before = device_server.ping_server(str(pad))["launches"]
+        zero_counts()
+        wall_srv = timed([*srv_args, "--gpu", "1"])
+        after = device_server.ping_server(str(pad))["launches"]
+    srv_launches = after["gapless_score"] - before["gapless_score"]
+    if srv_launches <= 0 or any(w.launches for w in wrappers.values()):
+        raise AssertionError("the --gpu 1 run did not go through the "
+                             "server's gapless_score kernel")
+    server = report("ungappedprefilter --gpu 1", wall_srv, n_queries,
+                    real_cells(qdb, pad),
+                    dict(launches=srv_launches, makepaddedseqdb_s=pad_s,
+                         server_startup_s=startup_s))
+    q_srv = sub_db(qdb, n_gapped, WORK / "q_first")
+    run_cli(["ungappedprefilter", q_srv, pad, WORK / "upref_pad_loc",
+             "--max-seqs", max_seqs, *WIDE])
+    loc, srv = entries(WORK / "upref_pad_loc"), entries(WORK / "upref_srv")
+    bad = [k for k in loc if loc[k] != srv.get(k)]
+    log(f"gpuserver cross-check: first {n_gapped} queries "
+        f"({sum(v.count(b'\n') for v in loc.values())} lines) against a run "
+        f"without the server, {len(bad)} differ")
+    if bad or len(loc) != n_gapped or not all(loc.values()):
+        raise AssertionError(f"--gpu 1 and the local run differ for queries "
+                             f"{bad[:10]}")
+
+    # e. gappedprefilter on the first n_gapped queries (a cut for time)
+    zero_counts()
+    wall_g = timed(["gappedprefilter", q_srv, tdb, WORK / "gpref",
+                    "--max-seqs", max_seqs])
+    g_launches = sw.sw_single.launches
+    if g_launches <= 0:
+        raise AssertionError("the gappedprefilter run launched no sw_single "
+                             "kernel")
+    gapped = report(f"gappedprefilter (cut for time: the first {n_gapped} "
+                    f"queries)", wall_g, n_gapped,
+                    real_cells(qdb, tdb, n_gapped),
+                    dict(launches=g_launches))
+    # a gapped score is at least the gapless one of the same pair
+    gp, low = entries(WORK / "gpref"), 0
+    for k, data in gp.items():
+        un = dict(pref_hits(got[k]))
+        low += sum(1 for t, s in pref_hits(data) if s < un.get(t, 0))
+    # and a sub-DB run equals the CPU's bytes
+    q8 = sub_db(qdb, 8, WORK / "q8")
+    run_cli(["gappedprefilter", q8, t_chk, WORK / "gpref_sub", "-e", "10"])
+    t0 = time.perf_counter()
+    run_cli(["gappedprefilter", q8, t_chk, WORK / "gpref_sub_cpu", "-e",
+             "10"], cpu=True)
+    a, b = entries(WORK / "gpref_sub"), entries(WORK / "gpref_sub_cpu")
+    log(f"gappedprefilter cross-check: {low} hits score below their gapless "
+        f"score; 8 queries against {n_check_targets} targets "
+        f"({sum(v.count(b'\n') for v in b.values())} hits) on the card and "
+        f"with the CPU requested: {'equal' if a == b else 'DIFFER'}, CPU "
+        f"run {time.perf_counter() - t0:.2f} s")
+    if low or a != b or not any(b.values()) or gapped["hits"] == 0:
+        raise AssertionError("gappedprefilter differs on the card and the "
+                             "CPU")
+    return dict(ungapped=ungapped, trace=trace, server=server, gapped=gapped)
+
+
 def main():
     try:
         import torch
@@ -827,21 +1365,27 @@ def main():
     # 3. kernels against their plain versions
     rows = phase_kernels(rng)
     rrows = phase_rescore_kernel(rng)
+    xrows = phase_exhaustive_kernels(rng)
 
     # 4. golden parity on the card
     phase_golden()
     phase_golden_search()
+    phase_golden_exhaustive(rng)
 
-    # 5. the align stage alone at real size, then a traced rerun
+    # 5. the align stage alone at real size (its traced rerun went when
+    # phase 7 came: phase 6 and 7 trace their own steps)
     real = phase_real_size(rng)
-    phase_trace("align", ["align", WORK / "qdb", WORK / "tdb", WORK / "pref",
-                          WORK / "aln_traced", "-a"],
-                WORK / "aln_traced", WORK / "aln", real["wall_s"])
 
     # 6. the main path at real size: easy-search, then a traced prefilter
     easy, _ = phase_easy_search()
 
-    # 7. kernels line; launches are those of the easy-search run
+    # 7. this slice at real size: the exhaustive prefilter
+    exh = phase_exhaustive()
+
+    # 8. kernels line; launches are those of the run of the path that
+    # launches the kernel: easy-search, ungappedprefilter, the server's
+    # process under ungappedprefilter --gpu 1, gappedprefilter; 0 for the
+    # two entry points without a caller, which phase 3 launches
     rep = next(r for c, r in rows if c["nq"] == 16 and c["lq"] == 512
                and c["lt"] == 512 and not c["reverse"] and c["go"] == 11
                and not c.get("negative") and not c.get("big"))
@@ -867,6 +1411,28 @@ def main():
         bound_by=rrep["bound_by"], library_ms=None,
         equal=all(r["equal"] for _, r in rrows),
         at=rrep["case"])]
+    replaces = dict(gapless="mmseqs2_tpu/ops/pallas_sw.py:396",
+                    gapless_score="mmseqs2_tpu/ops/pallas_sw.py:503",
+                    sw_single="mmseqs2_tpu/ops/pallas_sw.py:396",
+                    sw_offset="mmseqs2_tpu/ops/pallas_sw.py:420",
+                    sw_score="mmseqs2_tpu/ops/pallas_sw.py:493")
+    path_launches = dict(gapless=exh["ungapped"]["launches"],
+                         gapless_score=exh["server"]["launches"],
+                         sw_single=exh["gapped"]["launches"],
+                         sw_offset=0, sw_score=0)
+    for name, krows in xrows.items():
+        xrep = next(r for c, r in krows if c["lq"] == 512 and c["lt"] == 512
+                    and c["lanes"] == 16384)
+        kern.append(dict(
+            name=name, route="cuda",
+            source="mmseqs2_tpu_torch/csrc/"
+            + ("gapless.cu" if name.startswith("gapless") else "sw.cu"),
+            replaces=replaces[name], launches=path_launches[name],
+            max_abs_err=max(r["max_abs_err"] for _, r in krows),
+            ms=xrep["ms"], plain_ms=xrep["plain_ms"],
+            bound_ms=xrep["bound_ms"], bound_by=xrep["bound_by"],
+            library_ms=None, equal=all(r["equal"] for _, r in krows),
+            at=xrep["case"]))
     shutil.rmtree(WORK)
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(f"card: {card}")

@@ -3,12 +3,13 @@
 Port of mmseqs2_tpu/commands/search.py: the protein-vs-protein path with
 single and multi sensitivity stepping. Reference: src/workflow/Search.cpp
 (mode matrix :33-123, parameter wiring :544-629) + data/workflow/blastp.sh.
-The sliced, target-profile, nucleotide, translated and iterative searches,
---lca-search, --alignment-mode 4 and the exhaustive prefilter modes are not
-yet ported (see ROADMAP.md) and raise.
+--prefilter-mode: 0 k-mer index (default), 1 exhaustive ungapped, 2
+exhaustive (all-vs-all fake prefilter), mirroring Parameters::PREF_MODE_*;
+1 and 2 both run `ungappedprefilter`, as in the JAX package. The sliced,
+target-profile, nucleotide, translated and iterative searches, --lca-search,
+--alignment-mode 4 and --prefilter-mode 3 are not yet ported (see
+ROADMAP.md) and raise.
 """
-
-import os
 
 from ..db import dbtype as dbt
 from ..db.reader import DBReader
@@ -17,6 +18,11 @@ from ..workflow import Workflow
 from ..workflow.engine import not_exists
 
 PREF_MODE_KMER = 0
+PREF_MODE_UNGAPPED = 1
+PREF_MODE_EXHAUSTIVE = 2
+PREF_COMMANDS = {PREF_MODE_KMER: "prefilter",
+                 PREF_MODE_UNGAPPED: "ungappedprefilter",
+                 PREF_MODE_EXHAUSTIVE: "ungappedprefilter"}
 
 
 def _not_ported(what):
@@ -41,9 +47,8 @@ def search(par, command):
         _not_ported("the nucleotide and translated search")
     if par.num_iterations > 1:
         _not_ported("the iterative profile search (--num-iterations)")
-    if par.prefilter_mode != PREF_MODE_KMER:
-        _not_ported(f"search --prefilter-mode {par.prefilter_mode} "
-                    f"(ungappedprefilter)")
+    if par.prefilter_mode not in PREF_COMMANDS:
+        _not_ported(f"search --prefilter-mode {par.prefilter_mode}")
     if par.lca_search:
         _not_ported("search --lca-search (lcaalign)")
     if par.alignment_mode == 4:
@@ -57,10 +62,11 @@ def search(par, command):
     sens_steps = par.sens_steps if par.was_set("start_sens") else 1
     target_sens = par.sensitivity
     start_sens = min(par.start_sens, target_sens)
+    pref_cmd = PREF_COMMANDS[par.prefilter_mode]
 
     if sens_steps <= 1:
         pref = wf.path("pref_0")
-        wf.step(pref, "prefilter", [qdb, tdb, pref, "-s", target_sens], par)
+        wf.step(pref, pref_cmd, [qdb, tdb, pref, "-s", target_sens], par)
         wf.step(out_aln, "align", [qdb, tdb, pref, out_aln], par)
     else:
         # blastp.sh multi-step: search remaining queries at increasing
@@ -73,8 +79,8 @@ def search(par, command):
                 1, sens_steps - 1)
             pref = wf.path(f"pref_{step_i}")
             aln = wf.path(f"aln_{step_i}")
-            wf.step(pref, "prefilter", [current_q, tdb, pref, "-s",
-                                        round(sens, 2)], par)
+            wf.step(pref, pref_cmd, [current_q, tdb, pref, "-s",
+                                     round(sens, 2)], par)
             wf.step(aln, "align", [current_q, tdb, pref, aln], par)
             aln_steps.append(aln)
             if step_i < sens_steps - 1:
@@ -123,17 +129,3 @@ def _merge_alignments(qdb_path, aln_paths, out_path):
     for r in readers:
         r.close()
     q.close()
-
-
-# DB file helpers of the sliced search (--exhaustive-search, not yet ported)
-
-def _rmdb(path):
-    for suf in ("", ".index", ".dbtype"):
-        if os.path.exists(path + suf):
-            os.remove(path + suf)
-
-
-def _mvdb(src, dst):
-    for suf in ("", ".index", ".dbtype"):
-        if os.path.exists(src + suf):
-            os.replace(src + suf, dst + suf)

@@ -2,8 +2,10 @@
 // target) pairs in one launch, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_kernel` of mmseqs2_tpu/ops/pallas_sw.py in its
-// gapped, end-tracking, multi-query, query-offset form (`_sw_call` with
-// nq > 1 and qoff, entry point `sw_pallas_multi`). The TPU layout (query rows
+// gapped forms: end-tracking, multi-query, query-offset (`_sw_call` with
+// nq > 1 and qoff, entry point `sw_pallas_multi`) and the single-profile
+// entry points `sw_pallas`, `sw_pallas_offset` and `sw_pallas_score`
+// (instantiations below). The TPU layout (query rows
 // on sublanes, targets on lanes, a one-hot bf16 MXU lookup, f32 state and
 // packed (score, column) tracking) is not carried over: each of those works
 // around the TPU's vector unit. This kernel follows the GPU design of the
@@ -33,6 +35,14 @@
 //     1024 rows walks all target columns and leaves, per column, the H of its
 //     last row and the running max of Hng[k] + k*ge in global scratch for the
 //     next chunk (hb, gb: nlanes x lt int32 each).
+//
+// Instantiations: the one kernel serves four entry points of ops/sw.py.
+//   sw_multi   nq profiles, qsel and qoff per lane (`sw_pallas_multi`);
+//   sw_single  one profile: nq = 1, qsel and qoff null (`sw_pallas`, gapped);
+//   sw_offset  one profile and a per-lane qoff (`sw_pallas_offset`);
+//   sw_score   TRACK = false: one profile, the score alone, which is the
+//              max of H over all cells (`sw_pallas_score`); the end
+//              tracking, its compares and two of the three reductions go.
 //
 // What bounds it: integer operations. A cell needs at least 6 int32
 // instructions in Hopper's DPX forms: H - go (shared by E and F), E and F
@@ -84,7 +94,7 @@ __device__ __forceinline__ void load_scores(const int32_t* __restrict__ srow,
   for (int r = 0; r < R; ++r) s[r] = r < nvalid ? __ldg(srow + r) : 0;
 }
 
-template <int R>
+template <int R, bool TRACK>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     sw_multi_kernel(const int32_t* __restrict__ prof, int nq, int lq,
                     const int8_t* __restrict__ targets, int lt, int nlanes,
@@ -97,9 +107,9 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   const int tid = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (b >= nlanes) return;  // uniform across the warp
-  const int q = __ldg(qsel + b);
+  const int q = qsel ? __ldg(qsel + b) : 0;  // null: one profile
   if (q < 0 || q >= nq) __trap();
-  const int off = __ldg(qoff + b);
+  const int off = qoff ? __ldg(qoff + b) : 0;
   const int32_t* pq = prof + static_cast<size_t>(q) * kAlpha * lq;
   constexpr int kChunk = 32 * R;
   const int nchunks = (lq + kChunk - 1) / kChunk;
@@ -179,10 +189,14 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
             const int h = max(hng, run - go - (i - 1) * ge);
             H[r] = h;
             run = max(run, hng + i * ge);
-            if (h > cb) {
-              cb = h;
-              cc = j;
-              cr = i;
+            if constexpr (TRACK) {
+              if (h > cb) {
+                cb = h;
+                cc = j;
+                cr = i;
+              }
+            } else {
+              cb = max(cb, h);
             }
           }
         }
@@ -192,66 +206,91 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
         }
       }
     }
-    if (better(cb, cc, cr, best, best_c, best_r)) {
-      best = cb;
-      best_c = cc;
-      best_r = cr;
+    if constexpr (TRACK) {
+      if (better(cb, cc, cr, best, best_c, best_r)) {
+        best = cb;
+        best_c = cc;
+        best_r = cr;
+      }
+    } else {
+      best = max(best, cb);
     }
   }
 
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) {
     const int s2 = __shfl_xor_sync(kFull, best, d);
-    const int c2 = __shfl_xor_sync(kFull, best_c, d);
-    const int r2 = __shfl_xor_sync(kFull, best_r, d);
-    if (better(s2, c2, r2, best, best_c, best_r)) {
-      best = s2;
-      best_c = c2;
-      best_r = r2;
+    if constexpr (TRACK) {
+      const int c2 = __shfl_xor_sync(kFull, best_c, d);
+      const int r2 = __shfl_xor_sync(kFull, best_r, d);
+      if (better(s2, c2, r2, best, best_c, best_r)) {
+        best = s2;
+        best_c = c2;
+        best_r = r2;
+      }
+    } else {
+      best = max(best, s2);
     }
   }
   if (tid == 0) {
-    const bool pos = best > 0;
     out_score[b] = best;
-    out_qend[b] = pos ? best_r : lq - 1;
-    out_tend[b] = pos ? best_c : -1;
+    if constexpr (TRACK) {
+      const bool pos = best > 0;
+      out_qend[b] = pos ? best_r : lq - 1;
+      out_tend[b] = pos ? best_c : -1;
+    }
   }
 }
 
 template <int R>
-void launch(dim3 grid, dim3 block, cudaStream_t stream, const int32_t* prof,
-            int nq, int lq, const int8_t* targets, int lt, int nlanes,
-            const int32_t* qsel, const int32_t* qoff, int go, int ge, bool vec,
-            int32_t* score, int32_t* qend, int32_t* tend, int32_t* hb,
-            int32_t* gb) {
-  sw_multi_kernel<R><<<grid, block, 0, stream>>>(
-      prof, nq, lq, targets, lt, nlanes, qsel, qoff, go, ge, vec, score, qend,
-      tend, hb, gb);
+void launch(bool track, dim3 grid, dim3 block, cudaStream_t stream,
+            const int32_t* prof, int nq, int lq, const int8_t* targets,
+            int lt, int nlanes, const int32_t* qsel, const int32_t* qoff,
+            int go, int ge, bool vec, int32_t* score, int32_t* qend,
+            int32_t* tend, int32_t* hb, int32_t* gb) {
+  if (track)
+    sw_multi_kernel<R, true><<<grid, block, 0, stream>>>(
+        prof, nq, lq, targets, lt, nlanes, qsel, qoff, go, ge, vec, score,
+        qend, tend, hb, gb);
+  else
+    sw_multi_kernel<R, false><<<grid, block, 0, stream>>>(
+        prof, nq, lq, targets, lt, nlanes, qsel, qoff, go, ge, vec, score,
+        qend, tend, hb, gb);
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). rstrip is the strip height R
-// (1, 2, 4, 8, 16 or 32); hb/gb must hold nlanes * lt int32 each when
-// lq > 32 * rstrip and may be null otherwise. Returns cudaGetLastError().
+// Plain C entry point (bound with ctypes). qsel null means profile 0 for
+// every lane, qoff null offset 0. track != 0 writes score, qend and tend;
+// 0 writes the score alone (qend and tend may be null). rstrip is the strip
+// height R (1, 2, 4, 8, 16 or 32); hb/gb must hold nlanes * lt int32 each
+// when lq > 32 * rstrip and may be null otherwise. Returns
+// cudaGetLastError().
 extern "C" int sw_multi_launch(const int32_t* prof, int nq, int lq,
                                const int8_t* targets, int lt, int nlanes,
                                const int32_t* qsel, const int32_t* qoff,
-                               int go, int ge, int vec, int rstrip,
+                               int go, int ge, int vec, int rstrip, int track,
                                int32_t* score, int32_t* qend, int32_t* tend,
                                int32_t* hb, int32_t* gb, void* stream) {
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((nlanes + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool v = vec != 0;
+  const bool v = vec != 0, t = track != 0;
+#define SW_CASE(R)                                                           \
+  case R:                                                                    \
+    launch<R>(t, grid, block, st, prof, nq, lq, targets, lt, nlanes, qsel,   \
+              qoff, go, ge, v, score, qend, tend, hb, gb);                   \
+    break;
   switch (rstrip) {
-    case 1: launch<1>(grid, block, st, prof, nq, lq, targets, lt, nlanes, qsel, qoff, go, ge, v, score, qend, tend, hb, gb); break;
-    case 2: launch<2>(grid, block, st, prof, nq, lq, targets, lt, nlanes, qsel, qoff, go, ge, v, score, qend, tend, hb, gb); break;
-    case 4: launch<4>(grid, block, st, prof, nq, lq, targets, lt, nlanes, qsel, qoff, go, ge, v, score, qend, tend, hb, gb); break;
-    case 8: launch<8>(grid, block, st, prof, nq, lq, targets, lt, nlanes, qsel, qoff, go, ge, v, score, qend, tend, hb, gb); break;
-    case 16: launch<16>(grid, block, st, prof, nq, lq, targets, lt, nlanes, qsel, qoff, go, ge, v, score, qend, tend, hb, gb); break;
-    case 32: launch<32>(grid, block, st, prof, nq, lq, targets, lt, nlanes, qsel, qoff, go, ge, v, score, qend, tend, hb, gb); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    SW_CASE(1)
+    SW_CASE(2)
+    SW_CASE(4)
+    SW_CASE(8)
+    SW_CASE(16)
+    SW_CASE(32)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef SW_CASE
   return static_cast<int>(cudaGetLastError());
 }

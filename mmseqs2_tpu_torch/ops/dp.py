@@ -4,10 +4,11 @@ Smith-Waterman (score + end positions), as PyTorch column scans.
 Port of mmseqs2_tpu/ops/dp.py, the port's oracle: one step processes one
 target column for a whole batch of (query, target) pairs, whose per-column
 state is a (B, Lq) int32 matrix. sw_scan is the second oracle of the SW
-kernel (tests/test_torch_sw.py holds the kernel against it on the card);
-gapless_scan is the plain version of the gapless kernel still to be ported. The within-column affine-gap dependency
-(Farrar's lazy-F) is closed exactly with a prefix cummax (valid when
-gap_open >= gap_extend).
+kernel (tests/test_torch_sw.py holds the kernel against it on the card).
+gapless_scan is the plain version of the gapless kernel's tracking form
+(ops/gapless.py calls it). The within-column affine-gap dependency (Farrar's
+lazy-F) is closed exactly with a prefix cummax (valid when gap_open >=
+gap_extend).
 
 Numerical contracts reproduced:
   - gapless: saturating-u8 semantics of SmithWaterman::ungapped_alignment

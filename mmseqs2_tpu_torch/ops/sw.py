@@ -1,15 +1,22 @@
-"""Multi-query affine-gap Smith-Waterman: scores and end positions.
+"""Affine-gap Smith-Waterman scans: scores and end positions.
 
-Port of `sw_pallas_multi` (mmseqs2_tpu/ops/pallas_sw.py), the align stage's
-device scan: every lane b aligns the target in column b of `targets_t`
-against query profile `qsel[b]`, confined to query rows >= `qoff[b]`.
+Port of the gapped entry points of mmseqs2_tpu/ops/pallas_sw.py. Every lane b
+aligns the target in column b of `targets_t` against a query profile.
 
-  sw_multi        the wrapper: a CUDA tensor goes to the hand-written kernel
-                  (csrc/sw.cu, built at first use), a CPU tensor to the plain
-                  version; anything else raises. `sw_multi.launches` counts
-                  kernel launches.
-  sw_multi_plain  the plain PyTorch version: a batched column scan with the
-                  kernel's exact semantics, on any device.
+  sw_multi   `sw_pallas_multi`, the align stage's scan: lane b takes profile
+             `qsel[b]` of NQ, confined to query rows >= `qoff[b]`.
+  sw_single  `sw_pallas` (gapped): one (32, Lq) profile for every lane; the
+             gapped exhaustive prefilter's scan.
+  sw_offset  `sw_pallas_offset`: one profile and a per-lane `qoff`.
+  sw_score   `sw_pallas_score`: one profile, the score alone (the max of H
+             over all cells), without end tracking.
+
+Each wrapper sends a CUDA tensor to the hand-written kernel (csrc/sw.cu,
+built at first use: one kernel, instantiated with and without end tracking)
+and a CPU tensor to its plain version (`sw_multi_plain`, `sw_single_plain`,
+`sw_offset_plain`, `sw_score_plain`: batched column scans with the kernel's
+exact semantics, on any device); anything else raises. `<wrapper>.launches`
+counts that wrapper's kernel launches.
 
 Semantics (those of the TPU kernel): affine gaps, a gap of length k costs
 go + (k-1)*ge with go >= ge; E reads the previous column's H after the lazy-F
@@ -85,12 +92,36 @@ def _check(prof_flat, targets_t, qsel, qoff, go, ge):
                          f"ge={ge}")
 
 
-def _launch_kernel(prof_flat, targets_t, qsel, qoff, go, ge):
+def sw_single_plain(profile, targets_t, go=11, ge=1):
+    """Plain version of sw_single: sw_multi_plain at NQ = 1, qoff = 0."""
+    zeros = torch.zeros(targets_t.shape[1], dtype=torch.int32,
+                        device=profile.device)
+    return sw_multi_plain(profile, targets_t, zeros, zeros, go, ge)
+
+
+def sw_offset_plain(profile, targets_t, qoff, go=11, ge=1):
+    """Plain version of sw_offset: sw_multi_plain at NQ = 1."""
+    return sw_multi_plain(profile, targets_t, torch.zeros_like(qoff), qoff,
+                          go, ge)
+
+
+def sw_score_plain(profile, targets_t, go=11, ge=1):
+    """Plain version of sw_score: the best H of the tracked scan."""
+    return sw_single_plain(profile, targets_t, go, ge)[0]
+
+
+def _launch_kernel(wrapper, prof_flat, targets_t, qsel, qoff, go, ge,
+                   track=True):
+    """Launch csrc/sw.cu for `wrapper` (whose count it raises). qsel None
+    means profile 0 for every lane, qoff None offset 0; track False gives
+    the score alone."""
     dev = prof_flat.device
     tensors = {"prof_flat": (prof_flat, torch.int32),
                "targets_t": (targets_t, torch.int8),
                "qsel": (qsel, torch.int32), "qoff": (qoff, torch.int32)}
     for name, (t, dtype) in tensors.items():
+        if t is None:
+            continue
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, prof_flat on {dev}")
         if t.dtype != dtype:
@@ -99,7 +130,8 @@ def _launch_kernel(prof_flat, targets_t, qsel, qoff, go, ge):
             raise ValueError(f"{name} must be contiguous")
     nqa, lq = prof_flat.shape
     lt, nb = targets_t.shape
-    out = [torch.empty(nb, dtype=torch.int32, device=dev) for _ in range(3)]
+    out = [torch.empty(nb, dtype=torch.int32, device=dev)
+           for _ in range(3 if track else 1)]
     if nb == 0:
         return tuple(out)
     strip = 1
@@ -110,19 +142,36 @@ def _launch_kernel(prof_flat, targets_t, qsel, qoff, go, ge):
         hb = torch.empty((nb, lt), dtype=torch.int32, device=dev)
         gb = torch.empty((nb, lt), dtype=torch.int32, device=dev)
     vec = int(lq % 4 == 0 and prof_flat.data_ptr() % 16 == 0)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sw_multi_launch(
             prof_flat.data_ptr(), nqa // ALPHA_PAD, lq, targets_t.data_ptr(),
-            lt, nb, qsel.data_ptr(), qoff.data_ptr(), int(go), int(ge), vec,
-            strip, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            hb.data_ptr() if hb is not None else None,
-            gb.data_ptr() if gb is not None else None, stream)
+            lt, nb, ptr(qsel), ptr(qoff), int(go), int(ge), vec, strip,
+            int(track), out[0].data_ptr(), ptr(out[1] if track else None),
+            ptr(out[2] if track else None), ptr(hb), ptr(gb), stream)
     if err != 0:
-        raise RuntimeError(f"sw_multi kernel launch failed: CUDA error {err}")
-    sw_multi.launches += 1
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
+                           f"error {err}")
+    wrapper.launches += 1
     return tuple(out)
+
+
+def _on_cpu(name, prof_flat, *others):
+    """True for CPU inputs, False for CUDA inputs; raises on anything else
+    (no wrapper falls from the kernel to the plain version)."""
+    dev = prof_flat.device
+    if dev.type == "cpu":
+        for t in others:
+            if t is not None and t.device.type != "cpu":
+                raise ValueError(f"{name}: inputs on mixed devices")
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return False
 
 
 def sw_multi(prof_flat, targets_t, qsel, qoff=None, go=11, ge=1):
@@ -136,18 +185,48 @@ def sw_multi(prof_flat, targets_t, qsel, qoff=None, go=11, ge=1):
     _check(prof_flat, targets_t, qsel, qoff, go, ge)
     if qoff is None:
         qoff = torch.zeros_like(qsel)
-    dev = prof_flat.device
-    if dev.type == "cpu":
-        for t in (targets_t, qsel, qoff):
-            if t.device.type != "cpu":
-                raise ValueError("sw_multi: inputs on mixed devices")
+    if _on_cpu("sw_multi", prof_flat, targets_t, qsel, qoff):
         return sw_multi_plain(prof_flat, targets_t, qsel, qoff, go, ge)
-    if dev.type != "cuda":
-        raise ValueError(f"sw_multi: no kernel for device {dev}")
-    return _launch_kernel(prof_flat, targets_t, qsel, qoff, go, ge)
+    return _launch_kernel(sw_multi, prof_flat, targets_t, qsel, qoff, go, ge)
 
 
-sw_multi.launches = 0
+def _check_single(profile, targets_t, qoff, go, ge):
+    if profile.dim() != 2 or profile.shape[0] != ALPHA_PAD:
+        raise ValueError(f"profile must be ({ALPHA_PAD}, Lq), got "
+                         f"{tuple(profile.shape)}")
+    _check(profile, targets_t, None, qoff, go, ge)
+
+
+def sw_single(profile, targets_t, go=11, ge=1):
+    """(score, qend, tend) of one (32, Lq) profile against every lane of
+    targets_t (Lt, B): mmseqs2_tpu's gapped sw_pallas."""
+    _check_single(profile, targets_t, None, go, ge)
+    if _on_cpu("sw_single", profile, targets_t):
+        return sw_single_plain(profile, targets_t, go, ge)
+    return _launch_kernel(sw_single, profile, targets_t, None, None, go, ge)
+
+
+def sw_offset(profile, targets_t, qoff, go=11, ge=1):
+    """sw_single with lane b confined to query rows >= qoff[b]
+    (mmseqs2_tpu's sw_pallas_offset); qend in full-profile coordinates."""
+    _check_single(profile, targets_t, qoff, go, ge)
+    if _on_cpu("sw_offset", profile, targets_t, qoff):
+        return sw_offset_plain(profile, targets_t, qoff, go, ge)
+    return _launch_kernel(sw_offset, profile, targets_t, None, qoff, go, ge)
+
+
+def sw_score(profile, targets_t, go=11, ge=1):
+    """Scores alone, (B,) int32, without end tracking (mmseqs2_tpu's
+    sw_pallas_score)."""
+    _check_single(profile, targets_t, None, go, ge)
+    if _on_cpu("sw_score", profile, targets_t):
+        return sw_score_plain(profile, targets_t, go, ge)
+    return _launch_kernel(sw_score, profile, targets_t, None, None, go, ge,
+                          track=False)[0]
+
+
+for _w in (sw_multi, sw_single, sw_offset, sw_score):
+    _w.launches = 0
 
 _LIB = None
 
@@ -159,7 +238,7 @@ def _lib():
         lib = load("sw")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.sw_multi_launch.argtypes = [p, i, i, p, i, i, p, p, i, i, i, i,
-                                        p, p, p, p, p, p]
+                                        i, p, p, p, p, p, p]
         lib.sw_multi_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB

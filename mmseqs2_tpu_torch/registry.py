@@ -52,6 +52,18 @@ COMMANDS: List[Command] = [
     Command("prefilter", "prefilter_kmer", "prefilter_kmer", CAT_CORE,
             "K-mer inverted-index double-diagonal prefilter",
             "prefilter <queryDB> <targetDB> <prefDB>", 3, 3),
+    Command("ungappedprefilter", "prefilter_cmd", "ungappedprefilter",
+            CAT_CORE, "Exhaustive ungapped diagonal prefilter",
+            "ungappedprefilter <queryDB> <targetDB> <prefDB>", 3, 3),
+    Command("gappedprefilter", "prefilter_cmd", "gappedprefilter", CAT_CORE,
+            "Exhaustive gapped Smith-Waterman prefilter",
+            "gappedprefilter <queryDB> <targetDB> <prefDB>", 3, 3),
+    Command("gpuserver", "gpuserver_cmd", "gpuserver", CAT_UTIL,
+            "Start a resident device index server",
+            "gpuserver <paddedSeqDB>", 1, 1),
+    Command("makepaddedseqdb", "db_tools", "makepaddedseqdb", CAT_DB,
+            "Write a padded (GPU-layout) sequence DB",
+            "makepaddedseqdb <seqDB> <outDB>", 2, 2),
     Command("convertalis", "convertalis", "convertalis", CAT_UTIL,
             "Convert an alignment DB to BLAST-tab/SAM",
             "convertalis <queryDB> <targetDB> <alnDB> <outFile>", 4, 4),

@@ -1,0 +1,362 @@
+"""The port's exhaustive prefilter path (`ungappedprefilter`,
+`gappedprefilter`, `makepaddedseqdb`, `gpuserver`) with the CPU requested:
+against the reference MMseqs2 goldens (tests/golden/toy/upref,
+tests/golden/dbops/padded*), against the JAX package's commands on a small
+sub-DB, and through a resident server started as a subprocess. All outputs
+are bytes of result DBs, compared exactly. JAX is imported inside the tests
+that compare with it."""
+
+import os
+import pathlib
+import socket
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from mmseqs2_tpu_torch import cli
+from mmseqs2_tpu_torch.align import util as autil
+from mmseqs2_tpu_torch.commands import prefilter_cmd
+from mmseqs2_tpu_torch.db.reader import DBReader
+from mmseqs2_tpu_torch.db.writer import DBWriter
+from mmseqs2_tpu_torch.device import ENV
+from mmseqs2_tpu_torch.server import device_server
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+GOLDEN = REPO / "tests" / "golden" / "toy"
+PADDED = REPO / "tests" / "golden" / "dbops" / "padded"
+PADDED_FILES = ("", ".index", ".dbtype", ".lookup", "_h", "_h.index",
+                "_h.dbtype")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers per machine, and
+    PyTorch's default of one thread per core oversubscribes it badly."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def on_cpu(monkeypatch):
+    monkeypatch.setenv(ENV, "cpu")
+
+
+def run(args):
+    assert cli.main([str(a) for a in args]) == 0
+
+
+def run_jax(name, args):
+    from mmseqs2_tpu.params import Params
+    from mmseqs2_tpu.registry import get_command
+    cmd = get_command(name)
+    par = Params().parse([str(a) for a in args], cmd, cmd.min_db, cmd.max_db)
+    assert cmd.load()(par, cmd) == 0
+
+
+def entries_by_key(path):
+    with DBReader(str(path)) as r:
+        return {r.get_db_key(i): r.get_data(i) for i in range(r.size)}
+
+
+def subset_db(tmp_path, keys, name):
+    """The golden toy DB (sequences and headers) restricted to `keys`."""
+    out = str(tmp_path / name)
+    for suffix in ("", "_h"):
+        with DBReader(str(GOLDEN / "qdb") + suffix) as r, \
+                DBWriter(out + suffix, r.base_type, r.extended_type) as w:
+            for k in keys:
+                w.write(k, r.get_data(r.get_id(k)))
+    return out
+
+
+def test_ungappedprefilter_matches_golden(tmp_path, on_cpu):
+    """Two queries against all 500 toy targets equal the reference's
+    ungappedprefilter output."""
+    keys = [0, 7]
+    sub = subset_db(tmp_path, keys, "qsub")
+    prefilter_cmd.reset_stats()
+    run(["ungappedprefilter", sub, GOLDEN / "qdb", tmp_path / "upref"])
+    got = entries_by_key(tmp_path / "upref")
+    want = entries_by_key(GOLDEN / "upref")
+    for k in keys:
+        assert got[k] == want[k], f"query {k}:\n{got[k]!r}\n!=\n{want[k]!r}"
+    st = prefilter_cmd.STATS
+    assert st["queries"] == 2 and st["readbacks"] == 2
+    assert st["launches"] == 0          # the CPU runs the plain versions
+    assert st["hits"] == sum(v.count(b"\n") for v in got.values())
+
+
+# both commands against the JAX package's on 3 queries x 40 targets; on the
+# CPU the JAX gapped command runs dp.sw_scan (E from the pre-F H) and the
+# port the kernel's semantics (E from the post-F H): the outputs are equal
+# on these inputs, cheap gaps included
+JAX_CASES = {
+    "ungapped default": ("ungappedprefilter", []),
+    "ungapped coverage and max-seqs": (
+        "ungappedprefilter", ["-c", "0.8", "--cov-mode", "1", "--max-seqs",
+                              "5"]),
+    "gapped default": ("gappedprefilter", []),
+    "gapped loose": ("gappedprefilter", ["-e", "10", "--min-ungapped-score",
+                                         "0"]),
+    "gapped cheap gaps": ("gappedprefilter", [
+        "--gap-open", "5", "--gap-extend", "1", "-e", "100",
+        "--min-ungapped-score", "0"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(JAX_CASES))
+def test_exhaustive_prefilter_matches_the_jax_command(tmp_path, on_cpu, name):
+    cmd, extra = JAX_CASES[name]
+    q = subset_db(tmp_path, range(3), "q3")
+    t = subset_db(tmp_path, range(40), "t40")
+    run([cmd, q, t, tmp_path / "port", *extra])
+    run_jax(cmd, [q, t, tmp_path / "jax", *extra])
+    got, want = entries_by_key(tmp_path / "port"), \
+        entries_by_key(tmp_path / "jax")
+    assert got == want
+    assert any(got.values())
+
+
+@pytest.mark.parametrize("cmd", ["ungappedprefilter", "gappedprefilter"])
+def test_self_search_keeps_the_identity_hit(tmp_path, on_cpu, cmd):
+    """Same DB on both sides: a query's own entry is a hit whatever its
+    score and E-value (in the gapped mode with scoreIdentical's score)."""
+    db = subset_db(tmp_path, range(5), "t5")
+    run([cmd, db, db, tmp_path / "port", "-e", "1e-30"])
+    run_jax(cmd, [db, db, tmp_path / "jax", "-e", "1e-30"])
+    got, want = entries_by_key(tmp_path / "port"), \
+        entries_by_key(tmp_path / "jax")
+    assert got == want
+    for k in range(5):
+        assert got[k].split(b"\t")[0] == str(k).encode()
+
+
+@pytest.mark.parametrize("cov_mode", range(6))
+def test_can_be_covered_many_is_the_scalar_rule(cov_mode):
+    rng = np.random.default_rng(cov_mode)
+    tlens = rng.integers(1, 400, size=200)
+    for qlen, thr in ((120, 0.8), (37, 0.5), (300, 0.0)):
+        got = prefilter_cmd.can_be_covered_many(thr, cov_mode, qlen, tlens)
+        want = [autil.can_be_covered(thr, cov_mode, qlen, t) for t in tlens]
+        assert got.tolist() == want
+
+
+@pytest.mark.parametrize("max_seqs", [0, 7, 64, 1000])
+def test_select_hits_orders_as_the_reference_sort(max_seqs):
+    """The partition to --max-seqs keeps what the reference's full sort by
+    (|score| descending, key ascending) keeps, ties in the score included."""
+    from types import SimpleNamespace
+    rng = np.random.default_rng(max_seqs)
+    n = 300
+    keys = rng.permutation(5 * n)[:n].astype(np.int64)
+    scores = rng.integers(10, 22, size=n).astype(np.int32)     # many ties
+    par = SimpleNamespace(cov_thr=0.0, cov_mode=0, include_identity=False,
+                          min_ungapped_score=15, max_seqs=max_seqs)
+    got_k, got_s = prefilter_cmd.select_hits(
+        par, prefilter_cmd.MODE_GAPLESS, scores, -1, 100, keys,
+        np.full(n, 100), False, None, None)
+    hits = [(int(k), int(s)) for k, s in zip(keys, scores) if s > 15]
+    hits.sort(key=lambda h: (-abs(h[1]), h[0]))
+    assert list(zip(got_k.tolist(), got_s.tolist())) == hits[:max_seqs]
+
+
+def test_makepaddedseqdb_matches_golden(tmp_path, on_cpu):
+    out = tmp_path / "padded"
+    run(["makepaddedseqdb", GOLDEN / "qdb", out])
+    for suf in PADDED_FILES:
+        assert (pathlib.Path(str(PADDED) + suf).read_bytes()
+                == pathlib.Path(str(out) + suf).read_bytes()), suf
+
+
+@pytest.mark.parametrize("extra", [[], ["--mask", "0"],
+                                   ["--mask-lower-case", "1"]])
+def test_makepaddedseqdb_matches_the_jax_command(tmp_path, on_cpu, extra):
+    db = subset_db(tmp_path, range(40), "t40")
+    run(["makepaddedseqdb", db, tmp_path / "port", *extra])
+    run_jax("makepaddedseqdb", [db, tmp_path / "jax", *extra])
+    for suf in PADDED_FILES:
+        if suf == ".lookup":
+            continue        # written only beside a .lookup of the input
+        assert ((tmp_path / ("port" + suf)).read_bytes()
+                == (tmp_path / ("jax" + suf)).read_bytes()), suf
+
+
+# -- the resident server --------------------------------------------------------
+
+def _wait_for(path, proc, seconds=60):
+    end = time.monotonic() + seconds
+    while time.monotonic() < end:
+        if os.path.exists(path):
+            return
+        assert proc.poll() is None, "the server exited early"
+        time.sleep(0.1)
+    raise AssertionError("the server did not come up")
+
+
+def test_gpuserver_round_trip(tmp_path, on_cpu):
+    """A server on an 8-target padded DB: `--gpu 1` gives the bytes of the
+    run without a server in both modes, the JAX package's client gets the
+    same scores from it, and shutdown_server ends it. Both packages read a
+    padded DB's numeric codes through the ASCII table, so every target
+    letter is X and every score 0 (ROADMAP.md C): the thresholds are opened
+    so that the compared entries are not empty, and the port's local run
+    is held against the JAX command on the same padded DB."""
+    sub = subset_db(tmp_path, range(8), "sub")
+    pad = str(tmp_path / "pad")
+    run(["makepaddedseqdb", sub, pad])
+    q = subset_db(tmp_path, range(3), "q3")
+    sock = device_server.socket_path_for(pad)
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env[ENV] = "cpu"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mmseqs2_tpu_torch", "gpuserver", pad],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL)
+    try:
+        _wait_for(sock, proc)
+        wide = ["--min-ungapped-score", "-1", "-e", "1e30"]
+        for cmd in ("ungappedprefilter", "gappedprefilter"):
+            prefilter_cmd.reset_stats()
+            run([cmd, q, pad, tmp_path / f"{cmd}_srv", "--gpu", "1", *wide])
+            assert prefilter_cmd.STATS["server_s"] > 0
+            assert prefilter_cmd.STATS["readbacks"] == 0    # no local scan
+            run([cmd, q, pad, tmp_path / f"{cmd}_loc", *wide])
+            loc = entries_by_key(tmp_path / f"{cmd}_loc")
+            assert entries_by_key(tmp_path / f"{cmd}_srv") == loc
+            assert all(v.count(b"\n") == 8 for v in loc.values())
+        run_jax("ungappedprefilter", [q, pad, tmp_path / "jax_loc", *wide])
+        assert entries_by_key(tmp_path / "jax_loc") == \
+            entries_by_key(tmp_path / "ungappedprefilter_loc")
+
+        # the JAX package's client against this server
+        from mmseqs2_tpu.server.device_server import query_server as jax_query
+        rng = np.random.default_rng(0)
+        profile = rng.integers(-4, 8, size=(32, 64)).astype(np.int32)
+        mine = device_server.query_server(pad, profile, 250, 0, timeout=30)
+        theirs = jax_query(pad, profile, 250, 0, timeout=30)
+        assert mine.shape == (8,) and np.array_equal(mine, theirs)
+        assert mine.max() > 0
+        pong = device_server.ping_server(pad, timeout=30)
+        assert pong["ok"] and pong["n_targets"] == 8
+        assert pong["launches"] == {"gapless_score": 0, "sw_single": 0}
+
+        # a request the server cannot serve fails the client, not the server
+        with pytest.raises(RuntimeError, match="failed a request"):
+            device_server.query_server(pad, profile[:7], 250, 0, timeout=30)
+        assert device_server.query_server(pad, profile, 250, 1,
+                                          timeout=30).shape == (8,)
+
+        assert device_server.shutdown_server(pad, timeout=30)
+        assert proc.wait(timeout=30) == 0
+        assert not os.path.exists(sock)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        if os.path.exists(sock):
+            os.unlink(sock)
+
+
+def test_gpu_flag_without_a_server_warns_and_computes_locally(
+        tmp_path, on_cpu, capsys):
+    q = subset_db(tmp_path, range(2), "q2")
+    t = subset_db(tmp_path, range(8), "t8")
+    assert device_server.query_server(t, np.zeros((32, 32), np.int32), 250,
+                                      0) is None
+    assert not device_server.shutdown_server(t)
+    run(["ungappedprefilter", q, t, tmp_path / "gpu", "--gpu", "1"])
+    assert "no gpuserver running" in capsys.readouterr().err
+    run(["ungappedprefilter", q, t, tmp_path / "loc"])
+    assert entries_by_key(tmp_path / "gpu") == entries_by_key(tmp_path / "loc")
+
+
+def test_a_server_that_fails_a_request_fails_the_command(tmp_path, on_cpu):
+    """A socket left behind by a server that is gone counts as no server; a
+    server that takes the connection and hangs up without an answer raises,
+    and so does the command: it does not turn local without a word."""
+    q = subset_db(tmp_path, range(2), "q2")
+    t = subset_db(tmp_path, range(8), "t8")
+    path = device_server.socket_path_for(t)
+    profile = np.zeros((32, 32), np.int32)
+    srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    try:
+        srv.bind(path)
+        srv.listen(4)
+        srv.close()                             # stale: nobody listens
+        assert device_server.query_server(t, profile, 250, 0) is None
+        os.unlink(path)
+
+        srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        srv.bind(path)
+        srv.listen(4)
+        srv.settimeout(30)
+
+        def hang_up(n):
+            for _ in range(n):
+                conn, _ = srv.accept()
+                conn.recv(8)
+                conn.close()
+        th = threading.Thread(target=hang_up, args=(2,), daemon=True)
+        th.start()
+        with pytest.raises(RuntimeError, match="failed a request"):
+            device_server.query_server(t, profile, 250, 0, timeout=10)
+        with pytest.raises(RuntimeError, match="failed a request"):
+            cli.main(["ungappedprefilter", q, t, str(tmp_path / "out"),
+                      "--gpu", "1"])
+        th.join(timeout=30)
+        assert not (tmp_path / "out.dbtype").exists()
+    finally:
+        srv.close()
+        if os.path.exists(path):
+            os.unlink(path)
+
+
+SUBPROCESS_RUN = """
+import sys
+from mmseqs2_tpu_torch.cli import main
+q, t, out = sys.argv[1:4]
+assert main(["ungappedprefilter", q, t, out + "_u"]) == 0
+assert main(["gappedprefilter", q, t, out + "_g", "-e", "10"]) == 0
+assert main(["makepaddedseqdb", t, out + "_pad"]) == 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "mmseqs2_tpu"))
+print("LOADED", bad)
+assert not bad, bad
+"""
+
+
+def test_exhaustive_commands_load_no_jax(tmp_path):
+    q = subset_db(tmp_path, range(2), "q2")
+    t = subset_db(tmp_path, range(8), "t8")
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env[ENV] = "cpu"
+    r = subprocess.run([sys.executable, "-c", SUBPROCESS_RUN, q, t,
+                        str(tmp_path / "out")], env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "LOADED []" in r.stdout
+    assert entries_by_key(tmp_path / "out_u")[0]
+
+
+# -- the kernels through the store (needs the card) -----------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cmd", ["ungappedprefilter", "gappedprefilter"])
+def test_commands_on_the_card_match_the_cpu(tmp_path, monkeypatch, cmd):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    q = subset_db(tmp_path, range(4), "q4")
+    t = subset_db(tmp_path, range(60), "t60")
+    monkeypatch.setenv(ENV, "cuda")
+    prefilter_cmd.reset_stats()
+    run([cmd, q, t, tmp_path / "card", "-e", "10"])
+    assert prefilter_cmd.STATS["launches"] > 0
+    monkeypatch.setenv(ENV, "cpu")
+    run([cmd, q, t, tmp_path / "cpu", "-e", "10"])
+    assert entries_by_key(tmp_path / "card") == entries_by_key(tmp_path / "cpu")

@@ -2,7 +2,8 @@
 (`python -m mmseqs2_tpu_torch`) against the reference MMseqs2 goldens of
 tests/golden/toy, with the CPU requested: prefilter entries equal key by
 key, convertalis byte-identical, easy-search equal line for line. Also: the
-easy-search command loads neither JAX nor the JAX package, and every branch
+easy-search command loads neither JAX nor the JAX package, search
+--prefilter-mode 1 and 2 equal the JAX package's search, and every branch
 that is not ported says so and exits 1."""
 
 import os
@@ -166,6 +167,32 @@ def test_search_sensitivity_steps_merge(tmp_path, on_cpu):
         assert single[k] == v
 
 
+@pytest.mark.parametrize("mode", ["1", "2"])
+def test_search_prefilter_mode_runs_ungappedprefilter(tmp_path, on_cpu,
+                                                      mode):
+    """search --prefilter-mode 1 and 2 put the exhaustive ungapped
+    prefilter in the k-mer prefilter's place, as the JAX package's search
+    does: the prefilter DB and the alignment DB equal the JAX search's on a
+    toy subset."""
+    from mmseqs2_tpu.params import Params
+    from mmseqs2_tpu.registry import get_command
+    qsub = subset_db(tmp_path, range(3))
+    tsub = subset_db(tmp_path, range(30), "tsub")
+    extra = ["--prefilter-mode", mode, "--remove-tmp-files", "0"]
+    run(["search", qsub, tsub, tmp_path / "aln", tmp_path / "tmp", *extra])
+    cmd = get_command("search")
+    par = Params().parse([qsub, tsub, str(tmp_path / "jaln"),
+                          str(tmp_path / "jtmp"), *extra], cmd, cmd.min_db,
+                         cmd.max_db)
+    assert cmd.load()(par, cmd) == 0
+    pref = entries_by_key(tmp_path / "tmp" / "pref_0")
+    assert pref == entries_by_key(tmp_path / "jtmp" / "pref_0")
+    assert all(pref.values())
+    got = entries_by_key(tmp_path / "aln")
+    assert got == entries_by_key(tmp_path / "jaln")
+    assert sorted(got) == [0, 1, 2] and all(got.values())
+
+
 SUBPROCESS_RUN = """
 import sys
 from mmseqs2_tpu_torch.cli import main
@@ -220,10 +247,18 @@ UNPORTED = {
                             "--lca-search", "1"],
     "search --alignment-mode 4": ["search", QDB, QDB, "{out}", "{tmp}",
                                   "--alignment-mode", "4"],
-    "search --prefilter-mode 1": ["search", QDB, QDB, "{out}", "{tmp}",
-                                  "--prefilter-mode", "1"],
-    "search --prefilter-mode 2": ["search", QDB, QDB, "{out}", "{tmp}",
-                                  "--prefilter-mode", "2"],
+    "search --prefilter-mode 3": ["search", QDB, QDB, "{out}", "{tmp}",
+                                  "--prefilter-mode", "3"],
+    "ungappedprefilter nucleotide": ["ungappedprefilter", NUCL, NUCL,
+                                     "{out}"],
+    "ungappedprefilter profile query": ["ungappedprefilter", PROFILE, QDB,
+                                        "{out}"],
+    "gappedprefilter profile target": ["gappedprefilter", QDB, PROFILE,
+                                       "{out}"],
+    "gappedprefilter nucleotide target": ["gappedprefilter", QDB, NUCL,
+                                          "{out}"],
+    "makepaddedseqdb nucleotide": ["makepaddedseqdb", NUCL, "{out}"],
+    "gpuserver nucleotide": ["gpuserver", NUCL],
     "easy-search --greedy-best-hits": [
         "easy-search", GOLDEN / "QUERY.fasta", GOLDEN / "QUERY.fasta",
         "{out}", "{tmp}", "--greedy-best-hits", "1"],

@@ -169,6 +169,82 @@ def test_sw_multi_sentinel_and_unpacked_bound():
         np.testing.assert_array_equal(g, w)
 
 
+# -- the single-profile entry points -------------------------------------------
+
+def _single_args(prof, targets, qoff=None, device="cpu"):
+    args = [torch.from_numpy(prof),
+            torch.from_numpy(np.ascontiguousarray(targets.T.astype(np.int8)))]
+    if qoff is not None:
+        args.append(torch.from_numpy(qoff))
+    return [a.to(device) for a in args]
+
+
+# (lq, lt, b, go, ge)
+SINGLE_CASES = [(32, 40, 8, 11, 1), (72, 40, 16, 13, 2)]
+
+
+@pytest.mark.parametrize("case", SINGLE_CASES)
+def test_sw_single_plain_matches_pallas(case):
+    """sw_single against the gapped sw_pallas in interpret mode: the SW
+    semantics of the gapped exhaustive prefilter on a device (E reads the
+    previous column's H after the lazy-F correction)."""
+    from mmseqs2_tpu.ops.pallas_sw import sw_pallas
+    lq, lt, b, go, ge = case
+    prof, targets, _, _ = make_case(lq + lt, 1, lq, lt, b)
+    got = tsw.sw_single(*_single_args(prof, targets), go=go, ge=ge)
+    want = sw_pallas(prof, targets.T.astype(np.int8), go=go, ge=ge,
+                     interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(got[0].max()) > 0
+
+
+@pytest.mark.parametrize("case", SINGLE_CASES)
+def test_sw_offset_plain_matches_pallas(case):
+    from mmseqs2_tpu.ops.pallas_sw import sw_pallas_offset
+    lq, lt, b, go, ge = case
+    prof, targets, _, qoff = make_case(lq + lt + 1, 1, lq, lt, b,
+                                       offsets=True)
+    got = tsw.sw_offset(*_single_args(prof, targets, qoff), go=go, ge=ge)
+    want = sw_pallas_offset(prof, targets.T.astype(np.int8), qoff, go=go,
+                            ge=ge, interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # the rows below qoff are out of reach
+    assert bool((got[1] >= torch.from_numpy(qoff))[got[0] > 0].all())
+
+
+@pytest.mark.parametrize("case", SINGLE_CASES)
+def test_sw_score_plain_matches_pallas(case):
+    from mmseqs2_tpu.ops.pallas_sw import sw_pallas_score
+    lq, lt, b, go, ge = case
+    prof, targets, _, _ = make_case(lq + lt + 2, 1, lq, lt, b)
+    args = _single_args(prof, targets)
+    got = tsw.sw_score(*args, go=go, ge=ge)
+    want = sw_pallas_score(prof, targets.T.astype(np.int8), go=go, ge=ge,
+                           interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(got, tsw.sw_single(*args, go=go, ge=ge)[0])
+
+
+def test_single_entry_points_count_their_own_launches_and_check_inputs():
+    prof, targets, _, qoff = make_case(2, 1, 32, 40, 6, offsets=True)
+    before = [w.launches for w in (tsw.sw_single, tsw.sw_offset,
+                                   tsw.sw_score, tsw.sw_multi)]
+    tsw.sw_single(*_single_args(prof, targets))
+    tsw.sw_offset(*_single_args(prof, targets, qoff))
+    tsw.sw_score(*_single_args(prof, targets))
+    assert before == [w.launches for w in (tsw.sw_single, tsw.sw_offset,
+                                           tsw.sw_score, tsw.sw_multi)]
+    two = torch.zeros((64, 8), dtype=torch.int32)       # two profiles
+    t = torch.zeros((4, 2), dtype=torch.int8)
+    for fn in (tsw.sw_single, tsw.sw_score):
+        with pytest.raises(ValueError):
+            fn(two, t)
+    with pytest.raises(ValueError):
+        tsw.sw_offset(two[:32], t, torch.zeros(3, dtype=torch.int32))
+
+
 # -- the port's dp oracle on the inputs of tests/test_dp.py ------------------
 
 def _dp_random_case(rng, nq=3, b=8, lq=24, lt=40, alpha=21):
@@ -310,3 +386,29 @@ def test_sw_multi_kernel_matches_plain(cuda_device, nq, lq, lt, b, offsets):
             cuda_device), np.arange(b), targets, 11, 1)
     for g, w in zip(got, oracle):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lt,b", [(32, 40, 8), (72, 40, 17),
+                                     (512, 300, 600), (2500, 200, 40)])
+def test_single_entry_points_kernel_matches_plain(cuda_device, lq, lt, b):
+    """sw_single, sw_offset and sw_score on the card against their plain
+    versions on the CPU; each counts its own launch and not sw_multi's."""
+    prof, targets, _, qoff = make_case(lq + 3, 1, lq, lt, b, offsets=True)
+    cpu = _single_args(prof, targets, qoff)
+    dev = _single_args(prof, targets, qoff, cuda_device)
+    before = [w.launches for w in (tsw.sw_single, tsw.sw_offset,
+                                   tsw.sw_score, tsw.sw_multi)]
+    got = tsw.sw_single(*dev[:2], go=11, ge=1)
+    got_off = tsw.sw_offset(*dev, go=11, ge=1)
+    got_s = tsw.sw_score(*dev[:2], go=11, ge=1)
+    torch.cuda.synchronize()
+    after = [w.launches for w in (tsw.sw_single, tsw.sw_offset,
+                                  tsw.sw_score, tsw.sw_multi)]
+    assert after == [before[0] + 1, before[1] + 1, before[2] + 1, before[3]]
+    for g, w in zip(got, tsw.sw_single_plain(*cpu[:2], go=11, ge=1)):
+        assert torch.equal(g.cpu(), w)
+    for g, w in zip(got_off, tsw.sw_offset_plain(*cpu, go=11, ge=1)):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(got_s.cpu(), tsw.sw_score_plain(*cpu[:2], go=11, ge=1))
+    assert torch.equal(got_s, got[0])
