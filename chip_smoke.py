@@ -14,11 +14,14 @@ caught. Phases, each printing lines before the last:
      need, and the card's bound for those cells. sw_multi at the align
      stage's shapes, diag_rescore at the prefilter's (2^10 to 2^17
      candidates, windows of real protein lengths, edge cases), the gapless
-     scan in both forms (gapless, gapless_score) and the single-profile SW
-     entry points (sw_single, sw_offset, sw_score) at the shapes the
-     exhaustive prefilter launches (one profile, Lq 128 to 2,048, Lt
-     buckets 256 to 2,048, 4,096 and 16,384 lanes, small and large bias, a
-     case that saturates at the cap, all-negative);
+     scan (gapless, gapless_score) and the single-profile SW entry points
+     (sw_single, sw_offset, sw_score) at the shapes the exhaustive
+     prefilter launches (one profile, Lq 128 to 4,096, Lt buckets 256 to
+     2,048, 1,024 to 16,384 lanes, small and large bias, a case that
+     saturates at the cap, all-negative); the gapless cases pass the real
+     query and target lengths, and one shape runs again in the int32 form
+     and with the lengths off; each row gives the cells needed, padded and
+     computed;
   4. golden parity: the port's `align` on the 500-query toy set equals the
      reference MMseqs2 goldens (tests/golden/toy, tests/golden/alt): default
      and non-default scoring, --realign, --alt-ali, --corr-score-weight;
@@ -34,7 +37,7 @@ caught. Phases, each printing lines before the last:
   5. real size, align only: `createdb` + `align -a` on N_TARGETS
      SwissProt-like targets and 1,000 queries with 300 synthetic prefilter
      candidates each (300,000 pairs), data made from a seed; launch counts
-     taken over this run; the first 32 queries' results equal a run with
+     taken over this run; the first 16 queries' results equal a run with
      the CPU requested (plain versions);
   6. real size, the main path: `easy-search` of the same 1,000 queries
      against the same targets, from the FASTA files through createdb,
@@ -50,7 +53,8 @@ caught. Phases, each printing lines before the last:
      queries against the same targets (--max-seqs 300), counts set to 0
      just before and read just after: wall, queries/s, cells/s end to end,
      the split of the wall (upload, kernels by CUDA events, waiting for
-     read-backs, host filter and write), launches and read-backs per query;
+     read-backs, host filter and write), launches (by kernel form) and
+     read-backs per query, cells needed, padded and computed;
      the first 32 queries held against a run with the CPU requested on the
      first 500 targets (a cut for time: every hit of the card's run on
      those targets must be the CPU's, and every CPU hit that ranks inside
@@ -101,10 +105,20 @@ SW_OPS_PER_CELL = 6
 # least: the score (lookup plus correction), the add-max-relu step of the
 # running sum, the running best
 RESCORE_OPS_PER_CELL = 3
-# int32 instructions one gapless cell needs at the least (csrc/gapless.cu):
-# the add and the max with 0 in one __viaddmax_s32_relu, the cap, the
-# running best with tracking; without tracking the cap goes
-GAPLESS_OPS_PER_CELL = {"gapless": 3, "gapless_score": 2}
+# instructions one gapless cell needs at the least, by kernel and form
+# (csrc/gapless.cu). int32 form: the add and the max with 0 in one
+# __viaddmax_s32_relu, the cap, the running best with tracking; without
+# tracking the cap goes. int16 form, both kernels: two cells per DPX
+# instruction, so add + clamp to [0, cap] is one __viaddmin_s16x2_relu per
+# two cells and the running (or column) max one __vimax3_s16x2 per four:
+# 3/4 (the diagonal's permute and the tracking compare are once per column,
+# not per cell). The data sheet gives no DPX rate; the bound takes one DPX
+# instruction per int32 lane and clock, as for SW, so a share of the bound
+# over 100% would mean the card issues DPX faster than int32.
+GAPLESS_OPS_PER_CELL = {("gapless", "int32"): 3,
+                        ("gapless_score", "int32"): 2,
+                        ("gapless", "int16"): 0.75,
+                        ("gapless_score", "int16"): 0.75}
 
 
 def log(msg):
@@ -336,7 +350,7 @@ def phase_exhaustive_kernels(rng):
             bool((got[1] == lq - 1).all()) and bool((got[2] == -1).all())))
 
     def compare(name, kernel, plain, args, kw, c, label, cells, bound,
-                extra_ok=None):
+                extra_ok=None, extra=None):
         got, want = tuple_of(kernel(*args, **kw)), tuple_of(plain(*args, **kw))
         torch.cuda.synchronize()
         err = max(int((g.long() - w.long()).abs().max())
@@ -347,12 +361,16 @@ def phase_exhaustive_kernels(rng):
         ms = time_ms(lambda: kernel(*args, **kw), 5)
         plain_ms = time_ms(lambda: plain(*args, **kw), 2)
         padded = c["lanes"] * c["lq"] * c["lt"]
+        # cells_computed: what the kernel computes (every padded cell unless
+        # `extra` says otherwise)
         row = dict(kernel=name, case=label, equal=equal, max_abs_err=err,
                    ms=ms, plain_ms=plain_ms, cells_real=cells,
-                   cells_padded=padded, gcells_real=cells / ms / 1e6,
+                   cells_padded=padded, cells_computed=padded,
+                   gcells_real=cells / ms / 1e6,
                    gcells_padded=padded / ms / 1e6, bound_ms=bound[0],
                    bound_by=bound[1], bound_share=bound[0] / ms,
                    max_score=int(got[0].max()))
+        row.update(extra or {})
         log("kernel-case " + json.dumps(row))
         if not equal:
             raise AssertionError(f"{name} differs from its plain version: "
@@ -360,16 +378,20 @@ def phase_exhaustive_kernels(rng):
         out[name].append((c, row))
         return got
 
+    # every case passes single_case's real lengths (q_len, t_lens) and the
+    # profile's maximum; the Lq 512 x Lt 512 x 16,384 arrays run twice more:
+    # at cap 40,000, which picks the int32 form, and with the lengths off
     gapless_cases = [
         dict(lq=128, lt=256, lanes=16384, cap=251),
         dict(lq=256, lt=512, lanes=16384, cap=251),
         dict(lq=512, lt=512, lanes=16384, cap=251),
         dict(lq=512, lt=1024, lanes=4096, cap=251),
         dict(lq=1024, lt=2048, lanes=4096, cap=251),
-        dict(lq=2048, lt=512, lanes=4096, cap=251),     # strip-mined
+        dict(lq=2048, lt=512, lanes=4096, cap=251),     # strip-mined in int32
         dict(lq=512, lt=512, lanes=4096, cap=255 - 100),    # large bias
         dict(lq=512, lt=512, lanes=4096, cap=251, kind="saturate"),
         dict(lq=512, lt=512, lanes=4096, cap=251, kind="negative"),
+        dict(lq=4096, lt=256, lanes=1024, cap=251),     # strip-mined in both
     ]
     for c in gapless_cases:
         kind = c.get("kind", "normal")
@@ -377,27 +399,47 @@ def phase_exhaustive_kernels(rng):
                                            c["lanes"], kind)
         cells = int(qlen * tlen.sum())
         args = [torch.from_numpy(a).cuda() for a in (prof, tb)]
+        t_lens = torch.from_numpy(tlen.astype(np.int32)).cuda()
         label = (f"lq={c['lq']} lt={c['lt']} lanes={c['lanes']} "
                  f"cap={c['cap']}" + ("" if kind == "normal" else f" {kind}"))
         ok = sentinels(c["lq"]) if kind == "negative" else None
-        tracked = compare(
-            "gapless", gl.gapless, gl.gapless_plain, args,
-            dict(cap=c["cap"]), c, label, cells, single_bound_ms(
-                c["lq"], c["lt"], c["lanes"], cells,
-                GAPLESS_OPS_PER_CELL["gapless"], 3), ok)
-        score = compare(
-            "gapless_score", gl.gapless_score, gl.gapless_score_plain, args,
-            dict(cap=c["cap"]), c, label, cells, single_bound_ms(
-                c["lq"], c["lt"], c["lanes"], cells,
-                GAPLESS_OPS_PER_CELL["gapless_score"], 1), ok)
-        if not torch.equal(score[0], tracked[0]):
-            raise AssertionError(f"gapless_score differs from gapless's "
-                                 f"score: {label}")
-        if kind == "saturate":
-            at_cap = float((tracked[0] == c["cap"]).float().mean())
-            log(f"  saturate: {at_cap:.3f} of the lanes end at the cap")
-            if at_cap < 0.9:
-                raise AssertionError("the saturating case does not saturate")
+        variants = [(c, c["cap"], True)]
+        if (c["lq"], c["lt"], c["lanes"]) == (512, 512, 16384):
+            variants += [(dict(c, variant="int32 form"), 40_000, True),
+                         (dict(c, variant="lengths off"), c["cap"], False)]
+        for cv, cap, with_lengths in variants:
+            form = gl.pick_form(cap, prof.max())
+            kw = dict(cap=cap, prof_max=int(prof.max()))
+            if with_lengths:
+                kw.update(q_len=qlen, t_lens=t_lens)
+                computed = gl.rows_computed(form, qlen) * int(tlen.sum())
+            else:
+                computed = gl.rows_computed(form, c["lq"]) * c["lt"] \
+                    * c["lanes"]
+            vlabel = label + (f" cap={cap}" if cap != c["cap"] else "") + (
+                "" if with_lengths else " lengths off") + f" [{form}]"
+            extra = dict(form=form, lengths=with_lengths,
+                         cells_computed=computed)
+            res = {}
+            for name, kernel, plain, n_out in (
+                    ("gapless", gl.gapless, gl.gapless_plain, 3),
+                    ("gapless_score", gl.gapless_score,
+                     gl.gapless_score_plain, 1)):
+                res[name] = compare(
+                    name, kernel, plain, args, kw, cv, vlabel, cells,
+                    single_bound_ms(c["lq"], c["lt"], c["lanes"], cells,
+                                    GAPLESS_OPS_PER_CELL[(name, form)],
+                                    n_out, 1 if with_lengths else 0),
+                    ok, extra)
+            if not torch.equal(res["gapless_score"][0], res["gapless"][0]):
+                raise AssertionError(f"gapless_score differs from gapless's "
+                                     f"score: {vlabel}")
+            if kind == "saturate":
+                at_cap = float((res["gapless"][0] == cap).float().mean())
+                log(f"  saturate: {at_cap:.3f} of the lanes end at the cap")
+                if at_cap < 0.9:
+                    raise AssertionError("the saturating case does not "
+                                         "saturate")
 
     sw_cases = [
         dict(lq=256, lt=512, lanes=4096, go=11, ge=1),
@@ -914,7 +956,7 @@ def name_to_key(db):
 
 
 def phase_real_size(rng, n_targets=N_TARGETS, n_queries=1_000, max_seqs=300,
-                    n_check=32):
+                    n_check=16):
     from mmseqs2_tpu_torch.align import aligner
     from mmseqs2_tpu_torch.db import dbtype as dbt
     from mmseqs2_tpu_torch.db.writer import DBWriter
@@ -1172,6 +1214,8 @@ def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
         prefilter_cmd.reset_stats()
         for w in wrappers.values():
             w.launches = 0
+        for w in (gl.gapless, gl.gapless_score):
+            w.form_launches = dict.fromkeys(w.form_launches, 0)
         torch.cuda.synchronize()
 
     def timed(args):
@@ -1186,7 +1230,10 @@ def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
             queries=n_q, targets=N_TARGETS, wall_s=wall,
             queries_per_s=n_q / wall, cells_real=cells,
             gcells_per_s_end_to_end=cells / wall / 1e9, hits=st["hits"],
-            cells_padded=st["cells_padded"], store_bytes=st["store_bytes"],
+            cells_padded=st["cells_padded"],
+            cells_computed=st["cells_computed"],
+            computed_over_needed=st["cells_computed"] / cells,
+            store_bytes=st["store_bytes"],
             upload_s=st["store_s"], kernel_s=st["kernel_ms"] / 1e3,
             readback_wait_s=st["wait_s"], server_s=st["server_s"],
             host_filter_write_s=st["host_s"],
@@ -1210,11 +1257,16 @@ def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
     zero_counts()
     wall = timed(args)
     launches = {k: w.launches for k, w in wrappers.items()}
+    forms = dict(gl.gapless.form_launches)
     if launches["gapless"] <= 0:
         raise AssertionError("the ungappedprefilter run launched no gapless "
                              "kernel")
+    if forms["int16"] != launches["gapless"]:
+        raise AssertionError(f"the ungappedprefilter run did not launch the "
+                             f"16-bit form alone: {forms}")
     ungapped = report("ungappedprefilter", wall, n_queries, cells,
-                      dict(launches=launches["gapless"]))
+                      dict(launches=launches["gapless"],
+                           launches_by_form=forms))
     got = entries(WORK / "upref")
     if len(got) != n_queries or ungapped["hits"] == 0:
         raise AssertionError("the ungappedprefilter run wrote no results")
@@ -1416,13 +1468,17 @@ def main():
                     sw_single="mmseqs2_tpu/ops/pallas_sw.py:396",
                     sw_offset="mmseqs2_tpu/ops/pallas_sw.py:420",
                     sw_score="mmseqs2_tpu/ops/pallas_sw.py:493")
+    # launches by form: the local run's for gapless; the server counts its
+    # own process's launches and reports no forms
+    path_forms = dict(gapless=dict(
+        launches_by_form=exh["ungapped"]["launches_by_form"]))
     path_launches = dict(gapless=exh["ungapped"]["launches"],
                          gapless_score=exh["server"]["launches"],
                          sw_single=exh["gapped"]["launches"],
                          sw_offset=0, sw_score=0)
     for name, krows in xrows.items():
         xrep = next(r for c, r in krows if c["lq"] == 512 and c["lt"] == 512
-                    and c["lanes"] == 16384)
+                    and c["lanes"] == 16384 and "variant" not in c)
         kern.append(dict(
             name=name, route="cuda",
             source="mmseqs2_tpu_torch/csrc/"
@@ -1432,7 +1488,7 @@ def main():
             ms=xrep["ms"], plain_ms=xrep["plain_ms"],
             bound_ms=xrep["bound_ms"], bound_by=xrep["bound_by"],
             library_ms=None, equal=all(r["equal"] for _, r in krows),
-            at=xrep["case"]))
+            at=xrep["case"], **path_forms.get(name, {})))
     shutil.rmtree(WORK)
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(f"card: {card}")

@@ -9,8 +9,10 @@ are kept, sorted by (|score| desc, key asc), truncated to --max-seqs and
 written as `targetKey \\t score \\t 0` prefilter records.
 
 What differs from the JAX command, with the same bytes out:
-  - the padded target buckets are uploaded once as int8 (TargetStore, shared
-    with the resident server), not once per query; there is no chunk bound:
+  - the padded target buckets are uploaded once as int8 with their real
+    lengths (TargetStore, shared with the resident server; the gapless
+    kernel skips the pad rows and columns), not once per query; there is
+    no chunk bound:
     the buckets of a DB take its residues times at most 2 in bytes, and a DB
     that does not fit in the card's free memory is refused at upload;
   - a query's scores come back in one read-back of (n_targets,) int32; the
@@ -44,20 +46,22 @@ MODE_GAPPED = 1
 
 # Counters of the exhaustive prefilter, summed until reset_stats(): queries,
 # hits written, kernel launches and read-backs of score vectors, the cells
-# the local scans computed (padded query rows times padded target columns),
-# seconds to encode, pad and upload the targets (store_s) and the bytes of
-# the resident buckets, the scans' device milliseconds (CUDA events; 0 on
-# the CPU), seconds the host waited for read-backs (wait_s) or for the
-# server's replies (server_s), and seconds of host work per query: profile
-# set-up, filter, sort and write (host_s).
+# of the local scans' padded buckets (padded query rows times padded target
+# columns) and the cells their kernels compute (gapless: the rows the
+# kernel's strips cover times the targets' real columns; gapped: every
+# padded cell), seconds to encode, pad and upload the targets (store_s) and
+# the bytes of the resident buckets, the scans' device milliseconds (CUDA
+# events; 0 on the CPU), seconds the host waited for read-backs (wait_s) or
+# for the server's replies (server_s), and seconds of host work per query:
+# profile set-up, filter, sort and write (host_s).
 STATS = {}
 
 
 def reset_stats():
     STATS.clear()
     STATS.update(queries=0, hits=0, launches=0, readbacks=0, cells_padded=0,
-                 store_s=0.0, store_bytes=0, kernel_ms=0.0, wait_s=0.0,
-                 server_s=0.0, host_s=0.0)
+                 cells_computed=0, store_s=0.0, store_bytes=0, kernel_ms=0.0,
+                 wait_s=0.0, server_s=0.0, host_s=0.0)
 
 
 reset_stats()
@@ -67,11 +71,20 @@ def _not_ported(what):
     raise NotImplementedError(f"{what} is not yet ported (see ROADMAP.md)")
 
 
+def profile_length(profile):
+    """The real rows of a (32, Lq) query profile: one past the last query
+    position with an entry above the pad score -(1 << 20)."""
+    real = np.flatnonzero((np.asarray(profile) > gapless_ops.NEG).any(axis=0))
+    return int(real[-1]) + 1 if len(real) else 0
+
+
 class TargetStore:
     """A target DB padded into power-of-two length buckets that stay on the
     device: per bucket one (L, n) int8 tensor, pad letter 31, transposed once
-    here so that every scan reads it as it lies. Shared by the commands and
-    the resident server."""
+    here so that every scan reads it as it lies, and one (n,) int32 tensor of
+    the targets' real lengths in the same lane order, so that the gapless
+    kernel skips the pad columns. Shared by the commands and the resident
+    server."""
 
     def __init__(self, tdb: EncodedDB, device):
         t0 = time.perf_counter()
@@ -92,7 +105,7 @@ class TargetStore:
                     f"the padded target DB takes {nbytes} bytes, the card "
                     f"has {free} free; splitting the target DB is not yet "
                     f"ported (see ROADMAP.md)")
-        self.blocks = []
+        self.blocks, self.block_lens, self.block_residues = [], [], []
         for L in sizes:
             tids = self.order[bucket[self.order] == L]
             tb = np.full((len(tids), L), PAD_LETTER, dtype=np.int8)
@@ -100,6 +113,9 @@ class TargetStore:
                 tb[r, :self.lens[tid]] = seqs[tid]
             self.blocks.append(torch.from_numpy(
                 np.ascontiguousarray(tb.T)).to(self.device))
+            lens = self.lens[tids].astype(np.int32)
+            self.block_lens.append(torch.from_numpy(lens).to(self.device))
+            self.block_residues.append(int(lens.sum()))
         self.nbytes = nbytes
         STATS["store_bytes"] += nbytes
         STATS["store_s"] += time.perf_counter() - t0
@@ -108,17 +124,34 @@ class TargetStore:
         """Scores of one (32, Lq) int32 profile against every target: a
         (n_targets,) int32 device tensor in bucket order (see in_db_order).
         Gapless with track runs the end-tracking form, without it the
-        score-only form; both give the same scores."""
-        prof = torch.from_numpy(np.ascontiguousarray(
-            profile, dtype=np.int32)).to(self.device)
+        score-only form; both give the same scores. The gapless kernels get
+        the query's real length (the rows up to its last that is not pad)
+        and the profile's largest entry from this host copy, and the
+        targets' real lengths where the profile scores the pad letter as
+        pad on those rows (a profile built by make_query_profile does)."""
+        profile = np.ascontiguousarray(profile, dtype=np.int32)
+        prof = torch.from_numpy(profile).to(self.device)
+        q_len = profile_length(profile)
+        prof_max = int(profile.max())
+        pad_scored_as_pad = bool(
+            (profile[PAD_LETTER, :q_len] <= gapless_ops.NEG).all())
+        form = gapless_ops.pick_form(cap, prof_max)
+        rows = gapless_ops.rows_computed(form, q_len)
         parts = []
-        for block in self.blocks:
+        for block, lens, residues in zip(self.blocks, self.block_lens,
+                                         self.block_residues):
+            t_lens = lens if pad_scored_as_pad else None
             if mode == MODE_GAPPED:
                 parts.append(sw_ops.sw_single(prof, block, go=go, ge=ge)[0])
-            elif track:
-                parts.append(gapless_ops.gapless(prof, block, cap)[0])
+                STATS["cells_computed"] += block.numel() * profile.shape[1]
+                continue
+            kw = dict(q_len=q_len, t_lens=t_lens, prof_max=prof_max)
+            if track:
+                parts.append(gapless_ops.gapless(prof, block, cap, **kw)[0])
             else:
-                parts.append(gapless_ops.gapless_score(prof, block, cap))
+                parts.append(gapless_ops.gapless_score(prof, block, cap, **kw))
+            STATS["cells_computed"] += rows * (
+                residues if t_lens is not None else block.numel())
         if not parts:
             return torch.zeros(0, dtype=torch.int32, device=self.device)
         return torch.cat(parts)

@@ -13,13 +13,27 @@ Port of the two gapless entry points of mmseqs2_tpu/ops/pallas_sw.py:
 Each wrapper sends a CUDA tensor to the hand-written kernel (csrc/gapless.cu,
 built at first use) and a CPU tensor to its plain version (`gapless_plain`,
 `gapless_score_plain`); anything else raises. `<wrapper>.launches` counts
-kernel launches.
+kernel launches, `<wrapper>.form_launches` the same by form.
 
 Layout as in the JAX package: profile (32, Lq) int32 (pad rows and the pad
 letter's row score -(1 << 20)), targets_t (Lt, B) int8 with pad letter 31.
 Outputs are (B,) int32. The target end is the first column reaching the
 score, the query end the smallest row attaining it in that column; a lane
-with no positive cell gives (0, Lq - 1, -1).
+with no positive cell gives (0, Lq - 1, -1), Lq being the profile's length.
+
+Real lengths (optional): q_len, the profile's real rows (every entry of a
+row >= q_len is <= -(1 << 20)), and t_lens, a (B,) int32 tensor on the
+targets' device with each lane's real columns (columns >= t_lens[b] hold
+letter 31, and the profile's row 31 is <= -(1 << 20) on the real rows).
+Under that contract the cells past either length are 0 and the kernel skips
+them with the same result; the plain versions check the contract, raise
+ValueError where it does not hold, and scan everything.
+
+The kernel has two forms, chosen by `pick_form` from cap and the profile's
+largest entry: int16 (two rows per register, Hopper's DPX instructions)
+wherever every sum fits in 16 bits, int32 otherwise. prof_max, when the
+caller knows it, saves reading the maximum back from the card (a
+synchronisation).
 """
 
 import ctypes
@@ -29,12 +43,79 @@ import torch
 from . import dp
 
 ALPHA_PAD = 32
-MAX_STRIP = 32          # query rows per thread; a warp covers 32 * 32 rows
+PAD_LETTER = 31
+NEG = -(1 << 20)        # pad rows and the pad letter's row score at most this
+INT16_LIMIT = 1 << 15
+# rows per thread the kernel is built for; a warp covers 32 of these strips
+# per chunk, and longer queries take several chunks
+ROWS = {"int32": (1, 2, 4, 8, 12, 16, 20, 24, 28, 32),
+        "int16": (2, 4, *range(8, 65, 4))}
 
 
-def gapless_plain(profile, targets_t, cap=255):
+def pick_form(cap, prof_max):
+    """The kernel form for a call: "int16" when 0 <= cap and cap + the
+    profile's largest entry < 32768 (then no H + s leaves the 16-bit range),
+    else "int32"."""
+    cap, prof_max = int(cap), int(prof_max)
+    return "int16" if 0 <= cap and cap + prof_max < INT16_LIMIT else "int32"
+
+
+def strip_plan(form, q_len):
+    """(rows per thread, chunks) for q_len real query rows: the fewest
+    chunks, then the smallest strip that covers them. A warp computes
+    32 * rows * chunks rows per column."""
+    choices = ROWS[form]
+    n = max(int(q_len), 1)
+    chunks = -(-n // (32 * choices[-1]))
+    per = -(-n // (32 * chunks))
+    return next(r for r in choices if r >= per), chunks
+
+
+def rows_computed(form, q_len):
+    """The query rows a warp computes per column for q_len real rows."""
+    rows, chunks = strip_plan(form, q_len)
+    return 32 * rows * chunks
+
+
+def _check_lengths(name, profile, targets_t, q_len, t_lens, prof_max=None):
+    """Raise ValueError unless the lengths' contract holds (see the module
+    docstring) and prof_max, when given, is at least the profile's largest
+    entry."""
+    lq = profile.shape[1]
+    lt, nb = targets_t.shape
+    if q_len is not None:
+        if not 0 <= int(q_len) <= lq:
+            raise ValueError(f"{name}: q_len {q_len} outside [0, {lq}]")
+        if bool((profile[:, int(q_len):] > NEG).any()):
+            raise ValueError(f"{name}: a profile row past q_len {q_len} is "
+                             f"not pad (an entry above {NEG})")
+    if t_lens is not None:
+        if t_lens.shape != (nb,) or t_lens.device != targets_t.device:
+            raise ValueError(f"{name}: t_lens must be ({nb},) on "
+                             f"{targets_t.device}, got "
+                             f"{tuple(t_lens.shape)} on {t_lens.device}")
+        if bool(((t_lens < 0) | (t_lens > lt)).any()):
+            raise ValueError(f"{name}: t_lens outside [0, {lt}]")
+        past = torch.arange(lt, device=t_lens.device)[:, None] \
+            >= t_lens[None, :].to(torch.int64)
+        if bool((targets_t[past] != PAD_LETTER).any()):
+            raise ValueError(f"{name}: a real letter past t_lens (only "
+                             f"{PAD_LETTER} may follow a target)")
+        rows = lq if q_len is None else int(q_len)
+        if bool((profile[PAD_LETTER, :rows] > NEG).any()):
+            raise ValueError(f"{name}: the pad letter's profile row scores "
+                             f"above {NEG} on a real row")
+    if prof_max is not None and int(prof_max) < int(profile.max()):
+        raise ValueError(f"{name}: prof_max {prof_max} below the profile's "
+                         f"largest entry {int(profile.max())}")
+
+
+def gapless_plain(profile, targets_t, cap=255, q_len=None, t_lens=None,
+                  prof_max=None):
     """Plain version of gapless: dp.gapless_scan with one profile and one cap
-    for every lane, end positions tracked."""
+    for every lane, end positions tracked, over every cell."""
+    _check_lengths("gapless_plain", profile, targets_t, q_len, t_lens,
+                  prof_max)
     nb = targets_t.shape[1]
     qidx = torch.zeros(nb, dtype=torch.int64, device=profile.device)
     caps = torch.full((nb,), int(cap), dtype=torch.int32,
@@ -43,9 +124,12 @@ def gapless_plain(profile, targets_t, cap=255):
                            with_endpos=True)
 
 
-def gapless_score_plain(profile, targets_t, cap=255):
+def gapless_score_plain(profile, targets_t, cap=255, q_len=None, t_lens=None,
+                        prof_max=None):
     """Plain version of gapless_score: the column scan without the per-step
-    cap; the cap is applied once at the end, as the kernel does."""
+    cap over every cell; the cap is applied once at the end."""
+    _check_lengths("gapless_score_plain", profile, targets_t, q_len, t_lens,
+                  prof_max)
     dev = profile.device
     i32 = torch.int32
     prof = profile.to(i32)
@@ -75,67 +159,89 @@ def _check(name, profile, targets_t):
                          f"profile on {profile.device}")
 
 
-def _launch_kernel(wrapper, profile, targets_t, cap, track):
+def _launch_kernel(wrapper, profile, targets_t, cap, track, q_len, t_lens,
+                   prof_max):
     dev = profile.device
-    for name, t, dtype in (("profile", profile, torch.int32),
-                           ("targets_t", targets_t, torch.int8)):
+    tensors = [("profile", profile, torch.int32),
+               ("targets_t", targets_t, torch.int8)]
+    if t_lens is not None:
+        tensors.append(("t_lens", t_lens, torch.int32))
+    for name, t, dtype in tensors:
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lq = profile.shape[1]
     lt, nb = targets_t.shape
+    if t_lens is not None and (t_lens.shape != (nb,)
+                               or t_lens.device != dev):
+        raise ValueError(f"t_lens must be ({nb},) on {dev}")
+    q_len = lq if q_len is None else int(q_len)
+    if not 0 <= q_len <= lq:
+        raise ValueError(f"q_len {q_len} outside [0, {lq}]")
     out = [torch.empty(nb, dtype=torch.int32, device=dev)
            for _ in range(3 if track else 1)]
     if nb == 0:
         return out
-    strip = 1
-    while strip < MAX_STRIP and 32 * strip < lq:
-        strip *= 2
+    if prof_max is None:
+        prof_max = int(profile.max())
+    form = pick_form(cap, prof_max)
+    rows, chunks = strip_plan(form, q_len)
     hb = None
-    if lq > 32 * strip:         # strip-mined long query: boundary scratch
+    if chunks > 1:              # strip-mined long query: boundary scratch
         hb = torch.empty((nb, lt), dtype=torch.int32, device=dev)
-    vec = int(lq % 4 == 0 and profile.data_ptr() % 16 == 0)
+    n = rows // 2 if form == "int16" else rows     # words per thread
+    packed = torch.empty((ALPHA_PAD, 32 * n * chunks), dtype=torch.int32,
+                         device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gapless_launch(
-            profile.data_ptr(), lq, targets_t.data_ptr(), lt, nb, int(cap),
-            int(track), vec, strip, out[0].data_ptr(),
+            profile.data_ptr(), lq, targets_t.data_ptr(), lt, nb,
+            t_lens.data_ptr() if t_lens is not None else None, int(cap),
+            int(track), int(form == "int16"), rows, chunks,
+            packed.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr() if track else None,
             out[2].data_ptr() if track else None,
             hb.data_ptr() if hb is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"gapless kernel launch failed: CUDA error {err}")
     wrapper.launches += 1
+    wrapper.form_launches[form] += 1
     return out
 
 
-def _dispatch(wrapper, plain, profile, targets_t, cap, track):
+def _dispatch(wrapper, plain, profile, targets_t, cap, track, q_len, t_lens,
+              prof_max):
     _check(wrapper.__name__, profile, targets_t)
     dev = profile.device
     if dev.type == "cpu":
-        return plain(profile, targets_t, cap)
+        return plain(profile, targets_t, cap, q_len, t_lens, prof_max)
     if dev.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: no kernel for device {dev}")
-    out = _launch_kernel(wrapper, profile, targets_t, cap, track)
+    out = _launch_kernel(wrapper, profile, targets_t, cap, track, q_len,
+                         t_lens, prof_max)
     return tuple(out) if track else out[0]
 
 
-def gapless(profile, targets_t, cap=255):
+def gapless(profile, targets_t, cap=255, q_len=None, t_lens=None,
+            prof_max=None):
     """(score, qend, tend) of the best gapless diagonal segment per lane,
     with H held in [0, cap] at every step."""
-    return _dispatch(gapless, gapless_plain, profile, targets_t, cap, True)
+    return _dispatch(gapless, gapless_plain, profile, targets_t, cap, True,
+                     q_len, t_lens, prof_max)
 
 
-def gapless_score(profile, targets_t, cap=255):
+def gapless_score(profile, targets_t, cap=255, q_len=None, t_lens=None,
+                  prof_max=None):
     """Best gapless diagonal score per lane, min(score, cap)."""
     return _dispatch(gapless_score, gapless_score_plain, profile, targets_t,
-                     cap, False)
+                     cap, False, q_len, t_lens, prof_max)
 
 
-gapless.launches = 0
-gapless_score.launches = 0
+for _w in (gapless, gapless_score):
+    _w.launches = 0
+    _w.form_launches = {"int16": 0, "int32": 0}
 
 _LIB = None
 
@@ -146,8 +252,8 @@ def _lib():
         from .kernels import load
         lib = load("gapless")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gapless_launch.argtypes = [p, i, p, i, i, i, i, i, i, p, p, p, p,
-                                       p]
+        lib.gapless_launch.argtypes = [p, i, p, i, i, p, i, i, i, i, i, p, p,
+                                       p, p, p, p]
         lib.gapless_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB

@@ -188,6 +188,63 @@ def test_makepaddedseqdb_matches_the_jax_command(tmp_path, on_cpu, extra):
                 == (tmp_path / ("jax" + suf)).read_bytes()), suf
 
 
+@pytest.mark.parametrize("q_len", [50, 64])
+def test_target_store_passes_the_real_lengths(monkeypatch, q_len):
+    """The store keeps each bucket's real target lengths in lane order and
+    hands them, the query's real length (a power of two included) and the
+    profile's largest entry to the gapless kernels; a profile that scores
+    the pad letter above the pad score gets no target lengths."""
+    from mmseqs2_tpu_torch.commands.common import EncodedDB, open_seq_db
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    from mmseqs2_tpu_torch.ops import gapless as gapless_ops
+    from mmseqs2_tpu_torch.ops.encode import make_query_profile
+    submat = get_submat("blosum62.out", 2.0, 0.0)
+    store = prefilter_cmd.TargetStore(
+        EncodedDB(open_seq_db(str(GOLDEN / "qdb")), submat), "cpu")
+    assert len(store.blocks) > 2
+    lane = 0
+    for block, lens, residues in zip(store.blocks, store.block_lens,
+                                     store.block_residues):
+        n = block.shape[1]
+        tids = store.order[lane:lane + n]
+        lane += n
+        assert lens.dtype == torch.int32 and lens.device == store.device
+        assert lens.tolist() == store.lens[tids].tolist()
+        assert (block != prefilter_cmd.PAD_LETTER).sum(0).tolist() == \
+            lens.tolist()
+        assert residues == int(store.lens[tids].sum())
+    assert lane == store.n_targets
+
+    rng = np.random.default_rng(q_len)
+    mat = submat.sub_matrix.astype(np.int32)
+    profile = make_query_profile(
+        rng.integers(0, 20, size=q_len), mat,
+        rng.integers(-3, 4, size=q_len).astype(np.int8))
+    assert prefilter_cmd.profile_length(profile) == q_len
+    calls = []
+
+    def record(fn):
+        def wrapper(prof, block, cap, **kw):
+            calls.append((fn.__name__, kw))
+            return fn(prof, block, cap, **kw)
+        return wrapper
+    for name in ("gapless", "gapless_score"):
+        monkeypatch.setattr(gapless_ops, name,
+                            record(getattr(gapless_ops, name)))
+    scores = store.scan(profile, 250, prefilter_cmd.MODE_GAPLESS, 11, 1)
+    assert store.scan(profile, 250, prefilter_cmd.MODE_GAPLESS, 11, 1,
+                      track=False).tolist() == scores.tolist()
+    assert [c[0] for c in calls] == \
+        ["gapless"] * len(store.blocks) + ["gapless_score"] * len(store.blocks)
+    for (_, kw), lens in zip(calls, store.block_lens * 2):
+        assert kw["q_len"] == q_len and kw["prof_max"] == profile.max()
+        assert kw["t_lens"] is lens
+    calls.clear()
+    profile[prefilter_cmd.PAD_LETTER, 0] = 1
+    store.scan(profile, 250, prefilter_cmd.MODE_GAPLESS, 11, 1)
+    assert all(kw["t_lens"] is None for _, kw in calls)
+
+
 # -- the resident server --------------------------------------------------------
 
 def _wait_for(path, proc, seconds=60):
