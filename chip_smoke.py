@@ -18,10 +18,12 @@ caught. Phases, each printing lines before the last:
      (sw_single, sw_offset, sw_score) at the shapes the exhaustive
      prefilter launches (one profile, Lq 128 to 4,096, Lt buckets 256 to
      2,048, 1,024 to 16,384 lanes, small and large bias, a case that
-     saturates at the cap, all-negative); the gapless cases pass the real
-     query and target lengths, and one shape runs again in the int32 form
-     and with the lengths off; each row gives the cells needed, padded and
-     computed;
+     saturates at the cap, all-negative, cheap gaps); the gapless,
+     sw_single and sw_score cases pass the real query and target lengths,
+     and one shape runs again in the int32 form and with the lengths off
+     (and the strip-mined SW shape in the int32 form); sw_score must equal
+     sw_single's score; each row gives the form and the cells needed,
+     padded and computed;
   4. golden parity: the port's `align` on the 500-query toy set equals the
      reference MMseqs2 goldens (tests/golden/toy, tests/golden/alt): default
      and non-default scoring, --realign, --alt-ali, --corr-score-weight;
@@ -32,7 +34,9 @@ caught. Phases, each printing lines before the last:
      `upref` on all 500 queries, `makepaddedseqdb` the golden padded DB
      byte for byte; with a `gpuserver` (a subprocess) on that padded DB,
      `ungappedprefilter --gpu 1` and `gappedprefilter --gpu 1` give the
-     bytes of the runs without a server; `search --prefilter-mode 1` runs
+     bytes of the runs without a server, and the server launched both
+     score-only kernels (gapless_score, sw_score); `search --prefilter-mode
+     1` runs
      and its first queries' entries equal a run with the CPU requested;
   5. real size, align only: `createdb` + `align -a` on N_TARGETS
      SwissProt-like targets and 1,000 queries with 300 synthetic prefilter
@@ -61,8 +65,10 @@ caught. Phases, each printing lines before the last:
      the card's list must be in it); once more under torch.profiler for the
      busy and idle shares; then the same through a resident `gpuserver` on
      the padded target DB (start-up apart; the first 100 queries equal to a
-     local run on that DB), and `gappedprefilter` on the first 100 queries
-     (a cut for time), with a sub-DB run equal on the card and the CPU;
+     local run on that DB), and `gappedprefilter` of the 1,000 queries
+     (wall, kernels, launches by form, cells needed and computed; once
+     more under torch.profiler), no gapped hit below its gapless score,
+     and a sub-DB run equal on the card and the CPU;
   8. one JSON line listing every kernel;
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA card or outside a checkout of the repository.
@@ -101,6 +107,14 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # max(., F, 0) one __vimax_s32_relu, running best 1. The data sheet gives no
 # DPX rate; the bound takes one DPX instruction per int32 lane and clock.
 SW_OPS_PER_CELL = 6
+# the same count by form of sw_single_kernel (sw_single, sw_score): the int32
+# form as above; the int16 form does the five recurrence steps as s16x2 DPX
+# instructions for two cells each (__vadd2 for H - go, __viaddmax_s16x2 for
+# E, F and max(diag + s, E), __viaddmax_s16x2_relu with F and 0) and the
+# running (or column) max as one __vimax3_s16x2 per four cells: 2.75 a
+# cell. Score-only and tracking count the same: tracking's compare is once
+# per column
+SW_SINGLE_OPS_PER_CELL = {"int32": SW_OPS_PER_CELL, "int16": 2.75}
 # int32 operations one cell of the ungapped diagonal rescore needs at the
 # least: the score (lookup plus correction), the add-max-relu step of the
 # running sum, the running best
@@ -283,18 +297,20 @@ def phase_kernels(rng):
     return rows
 
 
-def single_case(rng, submat, lq, lt, lanes, kind="normal"):
+def single_case(rng, submat, lq, lt, lanes, kind="normal", n=None):
     """Inputs of one launch of the exhaustive prefilter: one query profile
     of the Lq bucket and `lanes` targets of the Lt bucket, pad letter 31,
     half of them mutated fragments of the query. "saturate" plants the
     query itself at varying offsets, so that the running score reaches the
     cap early and stays there (the first-column rule decides the end);
-    "negative" scores every cell below 0. Also returns the query's real
-    length and the targets' real lengths (cells = their product, summed)."""
+    "negative" scores every cell below 0. The query is n long (drawn from
+    (lq / 2, lq] if None). Also returns the query's real length and the
+    targets' real lengths (cells = their product, summed)."""
     from mmseqs2_tpu_torch.ops.encode import make_query_profile
     mat = submat.sub_matrix.astype(np.int32)
     aa_idx = np.array([submat.aa2num[c] for c in AA])
-    n = int(rng.integers(lq // 2 + 1, lq + 1))
+    if n is None:
+        n = int(rng.integers(lq // 2 + 1, lq + 1))
     q = aa_idx[rng.choice(20, size=n, p=PBACK)]
     prof = make_query_profile(q, mat, None, pad_len=lq, alpha_pad=32)
     if kind == "negative":
@@ -441,41 +457,82 @@ def phase_exhaustive_kernels(rng):
                     raise AssertionError("the saturating case does not "
                                          "saturate")
 
+    # sw_single and sw_score take single_case's real lengths and the
+    # profile's maximum, as gappedprefilter passes them; sw_offset runs as
+    # before (sw_multi_kernel, no lengths). The Lq 512 x Lt 512 x 16,384
+    # arrays run twice more: in the int32 form (one profile entry raised so
+    # that pick_form chooses it) and with the lengths off. The cases after
+    # the first five draw from their own generator, so that the later
+    # phases' data stay those of the earlier runs.
     sw_cases = [
         dict(lq=256, lt=512, lanes=4096, go=11, ge=1),
         dict(lq=512, lt=512, lanes=16384, go=11, ge=1),
         dict(lq=1024, lt=2048, lanes=4096, go=11, ge=1),
         dict(lq=2048, lt=512, lanes=1024, go=11, ge=1),     # strip-mined
         dict(lq=512, lt=512, lanes=4096, go=13, ge=2, kind="negative"),
+        dict(lq=512, lt=512, lanes=4096, go=1, ge=1),       # cheap gaps
+        # strip-mined in both forms: 2,900 rows take int16 (2,900 x 11 <
+        # 32,768) in two chunks of 64-row strips, and int32 in three of 32
+        dict(lq=4096, lt=256, lanes=1024, go=11, ge=1, n=2900),
     ]
-    for c in sw_cases:
+    rng_sw = np.random.default_rng(SEED + 6)
+    for k, c in enumerate(sw_cases):
         kind = c.get("kind", "normal")
-        prof, tb, qlen, tlen = single_case(rng, submat, c["lq"], c["lt"],
-                                           c["lanes"], kind)
-        qoff = rng.integers(0, qlen, size=c["lanes"]).astype(np.int32)
+        prof, tb, qlen, tlen = single_case(
+            rng if k < 5 else rng_sw, submat, c["lq"], c["lt"], c["lanes"],
+            kind, c.get("n"))
         cells = int(qlen * tlen.sum())
-        cells_off = int(((qlen - qoff) * tlen).sum())
-        prof_d, tb_d, qoff_d = [torch.from_numpy(a).cuda()
-                                for a in (prof, tb, qoff)]
-        kw = dict(go=c["go"], ge=c["ge"])
+        prof_d, tb_d = [torch.from_numpy(a).cuda() for a in (prof, tb)]
+        t_lens = torch.from_numpy(tlen.astype(np.int32)).cuda()
+        gaps = dict(go=c["go"], ge=c["ge"])
         label = (f"lq={c['lq']} lt={c['lt']} lanes={c['lanes']} "
                  f"go/ge={c['go']}/{c['ge']}"
                  + ("" if kind == "normal" else f" {kind}"))
         dims = (c["lq"], c["lt"], c["lanes"])
         ok = sentinels(c["lq"]) if kind == "negative" else None
-        single = compare("sw_single", sw.sw_single, sw.sw_single_plain,
-                         [prof_d, tb_d], kw, c, label, cells,
-                         single_bound_ms(*dims, cells, SW_OPS_PER_CELL, 3),
-                         ok)
-        compare("sw_offset", sw.sw_offset, sw.sw_offset_plain,
-                [prof_d, tb_d, qoff_d], kw, c, label, cells_off,
-                single_bound_ms(*dims, cells_off, SW_OPS_PER_CELL, 3, 1), ok)
-        score = compare("sw_score", sw.sw_score, sw.sw_score_plain,
-                        [prof_d, tb_d], kw, c, label, cells,
-                        single_bound_ms(*dims, cells, SW_OPS_PER_CELL, 1), ok)
-        if not torch.equal(score[0], single[0]):
-            raise AssertionError(f"sw_score differs from sw_single's score: "
-                                 f"{label}")
+        if k < 5:
+            qoff = rng.integers(0, qlen, size=c["lanes"]).astype(np.int32)
+            cells_off = int(((qlen - qoff) * tlen).sum())
+            compare("sw_offset", sw.sw_offset, sw.sw_offset_plain,
+                    [prof_d, tb_d, torch.from_numpy(qoff).cuda()], gaps, c,
+                    label, cells_off,
+                    single_bound_ms(*dims, cells_off, SW_OPS_PER_CELL, 3, 1),
+                    ok)
+        variants = [(c, prof_d, True)]
+        if dims == (512, 512, 16384) or c.get("n"):
+            raised = prof_d.clone()
+            raised[0, 0] = 40_000
+            variants.append((dict(c, variant="int32 form"), raised, True))
+        if dims == (512, 512, 16384):
+            variants.append((dict(c, variant="lengths off"), prof_d, False))
+        for cv, pv, with_lengths in variants:
+            pmax = int(pv.max())
+            rows = qlen if with_lengths else c["lq"]
+            form = sw.pick_form(rows, pmax, c["go"], c["ge"])
+            kw = dict(gaps, prof_max=pmax)
+            if with_lengths:
+                kw.update(q_len=qlen, t_lens=t_lens)
+                computed = gl.rows_computed(form, qlen) * int(tlen.sum())
+            else:
+                computed = gl.rows_computed(form, c["lq"]) * c["lt"] \
+                    * c["lanes"]
+            vlabel = label + (f" {cv['variant']}" if "variant" in cv
+                              else "") + f" [{form}]"
+            extra = dict(form=form, lengths=with_lengths,
+                         cells_computed=computed)
+            single = compare(
+                "sw_single", sw.sw_single, sw.sw_single_plain, [pv, tb_d],
+                kw, cv, vlabel, cells,
+                single_bound_ms(*dims, cells, SW_SINGLE_OPS_PER_CELL[form],
+                                3, 1 if with_lengths else 0), ok, extra)
+            score = compare(
+                "sw_score", sw.sw_score, sw.sw_score_plain, [pv, tb_d], kw,
+                cv, vlabel, cells,
+                single_bound_ms(*dims, cells, SW_SINGLE_OPS_PER_CELL[form],
+                                1, 1 if with_lengths else 0), ok, extra)
+            if not torch.equal(score[0], single[0]):
+                raise AssertionError(f"sw_score differs from sw_single's "
+                                     f"score: {vlabel}")
     return out
 
 
@@ -785,7 +842,8 @@ WIDE = ["--min-ungapped-score", "-1", "-e", "1e30"]
 
 
 def phase_golden_exhaustive(rng):
-    """The exhaustive prefilter path on the toy set, on the card."""
+    """The exhaustive prefilter path on the toy set, on the card. Returns
+    the server's launches for the two commands sent through it."""
     from mmseqs2_tpu_torch.commands import prefilter_cmd
     from mmseqs2_tpu_torch.commands.common import EncodedDB, open_seq_db
     from mmseqs2_tpu_torch.data.submat import get_submat
@@ -833,9 +891,10 @@ def phase_golden_exhaustive(rng):
             run_cli([cmd, q100, pad, WORK / f"toy_{cmd}_srv", "--gpu", "1",
                      *WIDE])
         srv_wall = time.perf_counter() - t0
+        # the commands' launches, before the random profile's requests
+        pong = device_server.ping_server(str(pad))
         srv_scores = [device_server.query_server(str(pad), prof, 251, mode)
                       for mode in (0, 1)]
-        pong = device_server.ping_server(str(pad))
     t0 = time.perf_counter()
     for cmd in cmds:
         run_cli([cmd, q100, pad, WORK / f"toy_{cmd}_loc", *WIDE])
@@ -859,10 +918,12 @@ def phase_golden_exhaustive(rng):
     log(f"golden gpuserver: up in {startup_s:.2f} s, both commands with "
         f"--gpu 1 in {srv_wall:.2f} s equal the runs without a server "
         f"({loc_wall:.2f} s, {n_lines} lines); a random profile's scores "
-        f"equal a local scan in both modes; the server launched "
-        f"{json.dumps(pong['launches'])}")
-    if min(pong["launches"].values()) <= 0:
-        raise AssertionError("the server launched no kernel")
+        f"equal a local scan in both modes; for the commands the server "
+        f"launched {json.dumps(pong['launches'])}")
+    # both modes run the score-only kernels in the server
+    if min(pong["launches"][k] for k in ("gapless_score", "sw_score")) <= 0:
+        raise AssertionError("the server launched no gapless_score or no "
+                             "sw_score kernel")
 
     # search --prefilter-mode 1: ungappedprefilter in the prefilter's place
     n_check = 2
@@ -889,6 +950,7 @@ def phase_golden_exhaustive(rng):
     if bad or len(cpu) != n_check or len(got) != 500 or not all(cpu.values()):
         raise AssertionError(f"search --prefilter-mode 1 differs on the card "
                              f"and the CPU for queries {bad[:10]}")
+    return pong["launches"]
 
 
 def lengths(rng, n):
@@ -1197,7 +1259,7 @@ def real_cells(qdb, tdb, n_queries=None):
 
 
 def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
-                     n_check_targets=500, n_gapped=100):
+                     n_check_targets=500, n_server_check=100):
     """This slice at real size: the exhaustive prefilter of phase 5's query
     and target DBs, locally, through a resident server and gapped."""
     import torch
@@ -1214,7 +1276,7 @@ def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
         prefilter_cmd.reset_stats()
         for w in wrappers.values():
             w.launches = 0
-        for w in (gl.gapless, gl.gapless_score):
+        for w in (gl.gapless, gl.gapless_score, sw.sw_single, sw.sw_score):
             w.form_launches = dict.fromkeys(w.form_launches, 0)
         torch.cuda.synchronize()
 
@@ -1326,30 +1388,34 @@ def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
                     real_cells(qdb, pad),
                     dict(launches=srv_launches, makepaddedseqdb_s=pad_s,
                          server_startup_s=startup_s))
-    q_srv = sub_db(qdb, n_gapped, WORK / "q_first")
+    q_srv = sub_db(qdb, n_server_check, WORK / "q_first")
     run_cli(["ungappedprefilter", q_srv, pad, WORK / "upref_pad_loc",
              "--max-seqs", max_seqs, *WIDE])
     loc, srv = entries(WORK / "upref_pad_loc"), entries(WORK / "upref_srv")
     bad = [k for k in loc if loc[k] != srv.get(k)]
-    log(f"gpuserver cross-check: first {n_gapped} queries "
+    log(f"gpuserver cross-check: first {n_server_check} queries "
         f"({sum(v.count(b'\n') for v in loc.values())} lines) against a run "
         f"without the server, {len(bad)} differ")
-    if bad or len(loc) != n_gapped or not all(loc.values()):
+    if bad or len(loc) != n_server_check or not all(loc.values()):
         raise AssertionError(f"--gpu 1 and the local run differ for queries "
                              f"{bad[:10]}")
 
-    # e. gappedprefilter on the first n_gapped queries (a cut for time)
+    # e. gappedprefilter, all queries: counts set to 0 just before, read
+    # just after
+    g_args = ["gappedprefilter", qdb, tdb, WORK / "gpref", "--max-seqs",
+              max_seqs]
     zero_counts()
-    wall_g = timed(["gappedprefilter", q_srv, tdb, WORK / "gpref",
-                    "--max-seqs", max_seqs])
+    wall_g = timed(g_args)
     g_launches = sw.sw_single.launches
+    g_forms = dict(sw.sw_single.form_launches)
     if g_launches <= 0:
         raise AssertionError("the gappedprefilter run launched no sw_single "
                              "kernel")
-    gapped = report(f"gappedprefilter (cut for time: the first {n_gapped} "
-                    f"queries)", wall_g, n_gapped,
-                    real_cells(qdb, tdb, n_gapped),
-                    dict(launches=g_launches))
+    gapped = report("gappedprefilter", wall_g, n_queries, cells,
+                    dict(launches=g_launches, launches_by_form=g_forms))
+    gapped_trace = phase_trace(
+        "gappedprefilter", [*g_args[:3], WORK / "gpref_traced", *g_args[4:]],
+        WORK / "gpref_traced", WORK / "gpref", wall_g)
     # a gapped score is at least the gapless one of the same pair
     gp, low = entries(WORK / "gpref"), 0
     for k, data in gp.items():
@@ -1370,7 +1436,8 @@ def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
     if low or a != b or not any(b.values()) or gapped["hits"] == 0:
         raise AssertionError("gappedprefilter differs on the card and the "
                              "CPU")
-    return dict(ungapped=ungapped, trace=trace, server=server, gapped=gapped)
+    return dict(ungapped=ungapped, trace=trace, server=server, gapped=gapped,
+                gapped_trace=gapped_trace)
 
 
 def main():
@@ -1422,7 +1489,7 @@ def main():
     # 4. golden parity on the card
     phase_golden()
     phase_golden_search()
-    phase_golden_exhaustive(rng)
+    srv_launches = phase_golden_exhaustive(rng)
 
     # 5. the align stage alone at real size (its traced rerun went when
     # phase 7 came: phase 6 and 7 trace their own steps)
@@ -1436,8 +1503,9 @@ def main():
 
     # 8. kernels line; launches are those of the run of the path that
     # launches the kernel: easy-search, ungappedprefilter, the server's
-    # process under ungappedprefilter --gpu 1, gappedprefilter; 0 for the
-    # two entry points without a caller, which phase 3 launches
+    # process under ungappedprefilter --gpu 1 (gapless_score) and under
+    # phase 4's gappedprefilter --gpu 1 (sw_score), gappedprefilter; 0 for
+    # sw_offset, which has no caller and which phase 3 launches
     rep = next(r for c, r in rows if c["nq"] == 16 and c["lq"] == 512
                and c["lt"] == 512 and not c["reverse"] and c["go"] == 11
                and not c.get("negative") and not c.get("big"))
@@ -1468,14 +1536,15 @@ def main():
                     sw_single="mmseqs2_tpu/ops/pallas_sw.py:396",
                     sw_offset="mmseqs2_tpu/ops/pallas_sw.py:420",
                     sw_score="mmseqs2_tpu/ops/pallas_sw.py:493")
-    # launches by form: the local run's for gapless; the server counts its
-    # own process's launches and reports no forms
-    path_forms = dict(gapless=dict(
-        launches_by_form=exh["ungapped"]["launches_by_form"]))
+    # launches by form: the local runs' for gapless and sw_single; the
+    # server counts its own process's launches and reports no forms
+    path_forms = dict(
+        gapless=dict(launches_by_form=exh["ungapped"]["launches_by_form"]),
+        sw_single=dict(launches_by_form=exh["gapped"]["launches_by_form"]))
     path_launches = dict(gapless=exh["ungapped"]["launches"],
                          gapless_score=exh["server"]["launches"],
                          sw_single=exh["gapped"]["launches"],
-                         sw_offset=0, sw_score=0)
+                         sw_offset=0, sw_score=srv_launches["sw_score"])
     for name, krows in xrows.items():
         xrep = next(r for c, r in krows if c["lq"] == 512 and c["lt"] == 512
                     and c["lanes"] == 16384 and "variant" not in c)

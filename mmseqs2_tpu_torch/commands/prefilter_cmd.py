@@ -10,10 +10,9 @@ written as `targetKey \\t score \\t 0` prefilter records.
 
 What differs from the JAX command, with the same bytes out:
   - the padded target buckets are uploaded once as int8 with their real
-    lengths (TargetStore, shared with the resident server; the gapless
-    kernel skips the pad rows and columns), not once per query; there is
-    no chunk bound:
-    the buckets of a DB take its residues times at most 2 in bytes, and a DB
+    lengths (TargetStore, shared with the resident server; both kernels
+    skip the pad rows and columns), not once per query; there is no chunk
+    bound: the buckets of a DB take its residues times at most 2 in bytes, and a DB
     that does not fit in the card's free memory is refused at upload;
   - a query's scores come back in one read-back of (n_targets,) int32; the
     next query's scan is enqueued before the host waits for it;
@@ -47,9 +46,8 @@ MODE_GAPPED = 1
 # Counters of the exhaustive prefilter, summed until reset_stats(): queries,
 # hits written, kernel launches and read-backs of score vectors, the cells
 # of the local scans' padded buckets (padded query rows times padded target
-# columns) and the cells their kernels compute (gapless: the rows the
-# kernel's strips cover times the targets' real columns; gapped: every
-# padded cell), seconds to encode, pad and upload the targets (store_s) and
+# columns) and the cells their kernels compute (the rows the kernel's
+# strips cover times the targets' real columns), seconds to encode, pad and upload the targets (store_s) and
 # the bytes of the resident buckets, the scans' device milliseconds (CUDA
 # events; 0 on the CPU), seconds the host waited for read-backs (wait_s) or
 # for the server's replies (server_s), and seconds of host work per query:
@@ -82,8 +80,8 @@ class TargetStore:
     """A target DB padded into power-of-two length buckets that stay on the
     device: per bucket one (L, n) int8 tensor, pad letter 31, transposed once
     here so that every scan reads it as it lies, and one (n,) int32 tensor of
-    the targets' real lengths in the same lane order, so that the gapless
-    kernel skips the pad columns. Shared by the commands and the resident
+    the targets' real lengths in the same lane order, so that the kernels
+    skip the pad columns. Shared by the commands and the resident
     server."""
 
     def __init__(self, tdb: EncodedDB, device):
@@ -123,33 +121,37 @@ class TargetStore:
     def scan(self, profile, cap, mode, go, ge, track=True):
         """Scores of one (32, Lq) int32 profile against every target: a
         (n_targets,) int32 device tensor in bucket order (see in_db_order).
-        Gapless with track runs the end-tracking form, without it the
-        score-only form; both give the same scores. The gapless kernels get
-        the query's real length (the rows up to its last that is not pad)
-        and the profile's largest entry from this host copy, and the
-        targets' real lengths where the profile scores the pad letter as
-        pad on those rows (a profile built by make_query_profile does)."""
+        With track the end-tracking kernel runs (gapless, sw_single),
+        without it the score-only one (gapless_score, sw_score); both give
+        the same scores. The kernels get the query's real length (the rows
+        up to its last that is not pad) and the profile's largest entry
+        from this host copy, and the targets' real lengths where the
+        profile scores the pad letter as pad on those rows (a profile built
+        by make_query_profile does)."""
         profile = np.ascontiguousarray(profile, dtype=np.int32)
         prof = torch.from_numpy(profile).to(self.device)
         q_len = profile_length(profile)
         prof_max = int(profile.max())
         pad_scored_as_pad = bool(
             (profile[PAD_LETTER, :q_len] <= gapless_ops.NEG).all())
-        form = gapless_ops.pick_form(cap, prof_max)
+        # both kernels share the strip plan of ops/gapless.py
+        if mode == MODE_GAPPED:
+            kernel = sw_ops.sw_single if track else sw_ops.sw_score
+            form = sw_ops.pick_form(q_len, prof_max, go, ge)
+            args = dict(go=go, ge=ge)
+        else:
+            kernel = (gapless_ops.gapless if track
+                      else gapless_ops.gapless_score)
+            form = gapless_ops.pick_form(cap, prof_max)
+            args = dict(cap=cap)
         rows = gapless_ops.rows_computed(form, q_len)
         parts = []
         for block, lens, residues in zip(self.blocks, self.block_lens,
                                          self.block_residues):
             t_lens = lens if pad_scored_as_pad else None
-            if mode == MODE_GAPPED:
-                parts.append(sw_ops.sw_single(prof, block, go=go, ge=ge)[0])
-                STATS["cells_computed"] += block.numel() * profile.shape[1]
-                continue
-            kw = dict(q_len=q_len, t_lens=t_lens, prof_max=prof_max)
-            if track:
-                parts.append(gapless_ops.gapless(prof, block, cap, **kw)[0])
-            else:
-                parts.append(gapless_ops.gapless_score(prof, block, cap, **kw))
+            out = kernel(prof, block, q_len=q_len, t_lens=t_lens,
+                         prof_max=prof_max, **args)
+            parts.append(out[0] if track else out)
             STATS["cells_computed"] += rows * (
                 residues if t_lens is not None else block.numel())
         if not parts:
@@ -165,7 +167,7 @@ class TargetStore:
 
 def _launch_count():
     return (gapless_ops.gapless.launches + gapless_ops.gapless_score.launches
-            + sw_ops.sw_single.launches)
+            + sw_ops.sw_single.launches + sw_ops.sw_score.launches)
 
 
 class _Scan:

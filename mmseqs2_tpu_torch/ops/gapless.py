@@ -77,7 +77,7 @@ def rows_computed(form, q_len):
     return 32 * rows * chunks
 
 
-def _check_lengths(name, profile, targets_t, q_len, t_lens, prof_max=None):
+def check_lengths(name, profile, targets_t, q_len, t_lens, prof_max=None):
     """Raise ValueError unless the lengths' contract holds (see the module
     docstring) and prof_max, when given, is at least the profile's largest
     entry."""
@@ -114,8 +114,8 @@ def gapless_plain(profile, targets_t, cap=255, q_len=None, t_lens=None,
                   prof_max=None):
     """Plain version of gapless: dp.gapless_scan with one profile and one cap
     for every lane, end positions tracked, over every cell."""
-    _check_lengths("gapless_plain", profile, targets_t, q_len, t_lens,
-                  prof_max)
+    check_lengths("gapless_plain", profile, targets_t, q_len, t_lens,
+                 prof_max)
     nb = targets_t.shape[1]
     qidx = torch.zeros(nb, dtype=torch.int64, device=profile.device)
     caps = torch.full((nb,), int(cap), dtype=torch.int32,
@@ -128,8 +128,8 @@ def gapless_score_plain(profile, targets_t, cap=255, q_len=None, t_lens=None,
                         prof_max=None):
     """Plain version of gapless_score: the column scan without the per-step
     cap over every cell; the cap is applied once at the end."""
-    _check_lengths("gapless_score_plain", profile, targets_t, q_len, t_lens,
-                  prof_max)
+    check_lengths("gapless_score_plain", profile, targets_t, q_len, t_lens,
+                 prof_max)
     dev = profile.device
     i32 = torch.int32
     prof = profile.to(i32)

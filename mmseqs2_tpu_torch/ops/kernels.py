@@ -2,7 +2,8 @@
 
 A source `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` for Hopper (sm_90a) into a shared library under the package's
-git-ignored build directory, keyed by a hash of the source and the flags,
+git-ignored build directory, keyed by a hash of the source, the headers of
+`csrc/` and the flags,
 then loaded with ctypes. Nothing is built when a module is imported: a CPU
 run never reaches this module. A missing `nvcc` or a failed build raises.
 """
@@ -39,8 +40,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str):
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of csrc/<name>.cu, keyed by the source, every header of
+    csrc/ (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 

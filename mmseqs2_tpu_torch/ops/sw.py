@@ -6,17 +6,19 @@ aligns the target in column b of `targets_t` against a query profile.
   sw_multi   `sw_pallas_multi`, the align stage's scan: lane b takes profile
              `qsel[b]` of NQ, confined to query rows >= `qoff[b]`.
   sw_single  `sw_pallas` (gapped): one (32, Lq) profile for every lane; the
-             gapped exhaustive prefilter's scan.
+             local gapped exhaustive prefilter's scan.
   sw_offset  `sw_pallas_offset`: one profile and a per-lane `qoff`.
   sw_score   `sw_pallas_score`: one profile, the score alone (the max of H
-             over all cells), without end tracking.
+             over all cells), without end tracking; the resident server's
+             gapped scan.
 
-Each wrapper sends a CUDA tensor to the hand-written kernel (csrc/sw.cu,
-built at first use: one kernel, instantiated with and without end tracking)
-and a CPU tensor to its plain version (`sw_multi_plain`, `sw_single_plain`,
-`sw_offset_plain`, `sw_score_plain`: batched column scans with the kernel's
-exact semantics, on any device); anything else raises. `<wrapper>.launches`
-counts that wrapper's kernel launches.
+Each wrapper sends a CUDA tensor to a hand-written kernel of csrc/sw.cu
+(built at first use) and a CPU tensor to its plain version (`sw_multi_plain`,
+`sw_single_plain`, `sw_offset_plain`, `sw_score_plain`: batched column scans
+with the kernels' exact semantics, on any device); anything else raises.
+sw_multi and sw_offset run `sw_multi_kernel`; sw_single and sw_score run
+`sw_single_kernel`. `<wrapper>.launches` counts that wrapper's kernel
+launches, `form_launches` (sw_single, sw_score) the same by form.
 
 Semantics (those of the TPU kernel): affine gaps, a gap of length k costs
 go + (k-1)*ge with go >= ge; E reads the previous column's H after the lazy-F
@@ -24,15 +26,58 @@ correction; the score is the best H; the target end is the first column
 reaching it and the query end the smallest row attaining it in that column.
 A lane whose scores are all <= 0 gives (0, lq - 1, -1). The query end is in
 full-profile coordinates (the caller subtracts qoff).
+
+sw_single and sw_score take the real lengths of ops/gapless.py (optional):
+q_len, the profile's real rows (every entry of a row >= q_len is
+<= -(1 << 20)), and t_lens, a (B,) int32 tensor on the targets' device with
+each lane's real columns (columns >= t_lens[b] hold letter 31, and the
+profile's row 31 is <= -(1 << 20) on the real rows). A cell past a length
+can be above 0 (a gap runs into it), but it is below a real cell's H or
+equal to one in an earlier column or a smaller row, and it feeds only cells
+past the lengths, so the kernel skips them with the same result. The plain
+versions check the contract, raise ValueError where it does not hold, and
+scan every cell. The kernel has two forms, chosen by `pick_form` from the
+input's range: int16 (two rows per register, Hopper's DPX instructions) and
+int32. prof_max, when the caller knows it, saves reading the profile's
+maximum back from the card (a synchronisation).
 """
 
 import ctypes
 
 import torch
 
+from . import gapless
+
 ALPHA_PAD = 32
 NEG_INF = -(1 << 28)
-MAX_STRIP = 32          # query rows per thread; a warp covers 32 * 32 rows
+MAX_STRIP = 32          # sw_multi: query rows per thread (32 * 32 a warp)
+INT16_LIMIT = 1 << 15
+
+
+def pick_form(q_len, prof_max, go, ge):
+    """The form of sw_single_kernel for a call: "int16" where every value
+    the recurrence forms fits in 16 bits, else "int32". The kernel keeps
+    E' = E + go, F' = F + go (clamped at 0, which is exact) and H, all in
+    [0, score]; the bounds, for q_len real rows, the profile's largest
+    entry prof_max and gaps go >= ge >= 0:
+      - the score: at most q_len * max(prof_max, 0) < 32768, so no H, E'
+        or F' overflows (a real entry is at most the score);
+      - H + s: H >= 0 and s >= -32768 (entries saturate there: pad rows
+        and the pad letter score <= -(1 << 20), so a saturated sum stays
+        below 0 and loses to the 0 of the local alignment);
+      - E and F: E' - go, F' - go, E' - ge and F' - ge are at least -go
+        after the first column (E >= -go), so go < 32768;
+      - the prefix-max F: its ramp i * ge is taken relative to the chunk's
+        first row, so it stays below 32 * rows * ge, and it is formed in the
+        warp scan's int32, one word per strip, as is the F' a strip-mined
+        query hands the next chunk (gb, clamped at 0): what comes back into
+        16 bits is an F' in [0, score]. So it needs no 16-bit bound.
+    With BLOSUM62 at 2 bits (largest entry 11) and a bias that does not
+    raise it, queries up to 2,978 residues take int16."""
+    q_len, prof_max, go, ge = int(q_len), int(prof_max), int(go), int(ge)
+    score = q_len * max(prof_max, 0)
+    fits = score < INT16_LIMIT and 0 <= ge <= go < INT16_LIMIT
+    return "int16" if fits else "int32"
 
 
 def sw_multi_plain(prof_flat, targets_t, qsel, qoff, go=11, ge=1):
@@ -92,8 +137,12 @@ def _check(prof_flat, targets_t, qsel, qoff, go, ge):
                          f"ge={ge}")
 
 
-def sw_single_plain(profile, targets_t, go=11, ge=1):
-    """Plain version of sw_single: sw_multi_plain at NQ = 1, qoff = 0."""
+def sw_single_plain(profile, targets_t, go=11, ge=1, q_len=None, t_lens=None,
+                    prof_max=None):
+    """Plain version of sw_single: checks the lengths' contract, then
+    sw_multi_plain at NQ = 1, qoff = 0 over every cell."""
+    gapless.check_lengths("sw_single_plain", profile, targets_t, q_len,
+                          t_lens, prof_max)
     zeros = torch.zeros(targets_t.shape[1], dtype=torch.int32,
                         device=profile.device)
     return sw_multi_plain(profile, targets_t, zeros, zeros, go, ge)
@@ -105,33 +154,38 @@ def sw_offset_plain(profile, targets_t, qoff, go=11, ge=1):
                           go, ge)
 
 
-def sw_score_plain(profile, targets_t, go=11, ge=1):
+def sw_score_plain(profile, targets_t, go=11, ge=1, q_len=None, t_lens=None,
+                   prof_max=None):
     """Plain version of sw_score: the best H of the tracked scan."""
+    gapless.check_lengths("sw_score_plain", profile, targets_t, q_len, t_lens,
+                          prof_max)
     return sw_single_plain(profile, targets_t, go, ge)[0]
 
 
-def _launch_kernel(wrapper, prof_flat, targets_t, qsel, qoff, go, ge,
-                   track=True):
-    """Launch csrc/sw.cu for `wrapper` (whose count it raises). qsel None
-    means profile 0 for every lane, qoff None offset 0; track False gives
-    the score alone."""
-    dev = prof_flat.device
-    tensors = {"prof_flat": (prof_flat, torch.int32),
-               "targets_t": (targets_t, torch.int8),
-               "qsel": (qsel, torch.int32), "qoff": (qoff, torch.int32)}
+def _check_tensors(dev, **tensors):
+    """Raise unless every (tensor, dtype) given (None skipped) lies on dev,
+    has that dtype and is contiguous, as a kernel reads it."""
     for name, (t, dtype) in tensors.items():
         if t is None:
             continue
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, prof_flat on {dev}")
+            raise ValueError(f"{name} is on {t.device}, not {dev}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_kernel(wrapper, prof_flat, targets_t, qsel, qoff, go, ge):
+    """Launch sw_multi_kernel for `wrapper` (whose count it raises). qsel
+    None means profile 0 for every lane."""
+    dev = prof_flat.device
+    _check_tensors(dev, prof_flat=(prof_flat, torch.int32),
+                   targets_t=(targets_t, torch.int8),
+                   qsel=(qsel, torch.int32), qoff=(qoff, torch.int32))
     nqa, lq = prof_flat.shape
     lt, nb = targets_t.shape
-    out = [torch.empty(nb, dtype=torch.int32, device=dev)
-           for _ in range(3 if track else 1)]
+    out = [torch.empty(nb, dtype=torch.int32, device=dev) for _ in range(3)]
     if nb == 0:
         return tuple(out)
     strip = 1
@@ -151,12 +205,62 @@ def _launch_kernel(wrapper, prof_flat, targets_t, qsel, qoff, go, ge,
         err = lib.sw_multi_launch(
             prof_flat.data_ptr(), nqa // ALPHA_PAD, lq, targets_t.data_ptr(),
             lt, nb, ptr(qsel), ptr(qoff), int(go), int(ge), vec, strip,
-            int(track), out[0].data_ptr(), ptr(out[1] if track else None),
-            ptr(out[2] if track else None), ptr(hb), ptr(gb), stream)
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), ptr(hb),
+            ptr(gb), stream)
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
                            f"error {err}")
     wrapper.launches += 1
+    return tuple(out)
+
+
+def _launch_single(wrapper, profile, targets_t, go, ge, track, q_len, t_lens,
+                   prof_max):
+    """Launch sw_single_kernel for `wrapper` (whose counts it raises) in the
+    form pick_form chooses; track False gives the score alone."""
+    dev = profile.device
+    _check_tensors(dev, profile=(profile, torch.int32),
+                   targets_t=(targets_t, torch.int8),
+                   t_lens=(t_lens, torch.int32))
+    lq = profile.shape[1]
+    lt, nb = targets_t.shape
+    if t_lens is not None and t_lens.shape != (nb,):
+        raise ValueError(f"t_lens must be ({nb},), got {tuple(t_lens.shape)}")
+    q_len = lq if q_len is None else int(q_len)
+    if not 0 <= q_len <= lq:
+        raise ValueError(f"q_len {q_len} outside [0, {lq}]")
+    out = [torch.empty(nb, dtype=torch.int32, device=dev)
+           for _ in range(3 if track else 1)]
+    if nb == 0:
+        return tuple(out)
+    if prof_max is None:
+        prof_max = int(profile.max())
+    form = pick_form(q_len, prof_max, go, ge)
+    rows, chunks = gapless.strip_plan(form, q_len)
+    hb = gb = None
+    if chunks > 1:              # strip-mined long query: boundary scratch
+        hb = torch.empty((nb, lt), dtype=torch.int32, device=dev)
+        gb = torch.empty((nb, lt), dtype=torch.int32, device=dev)
+    n = rows // 2 if form == "int16" else rows     # words per thread
+    packed = torch.empty((ALPHA_PAD, 32 * n * chunks), dtype=torch.int32,
+                         device=dev)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sw_single_launch(
+            profile.data_ptr(), lq, targets_t.data_ptr(), lt, nb, ptr(t_lens),
+            int(go), int(ge), int(track), int(form == "int16"), rows, chunks,
+            packed.data_ptr(), out[0].data_ptr(),
+            ptr(out[1] if track else None), ptr(out[2] if track else None),
+            ptr(hb), ptr(gb), stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
+                           f"error {err}")
+    wrapper.launches += 1
+    wrapper.form_launches[form] += 1
     return tuple(out)
 
 
@@ -197,13 +301,17 @@ def _check_single(profile, targets_t, qoff, go, ge):
     _check(profile, targets_t, None, qoff, go, ge)
 
 
-def sw_single(profile, targets_t, go=11, ge=1):
+def sw_single(profile, targets_t, go=11, ge=1, q_len=None, t_lens=None,
+              prof_max=None):
     """(score, qend, tend) of one (32, Lq) profile against every lane of
-    targets_t (Lt, B): mmseqs2_tpu's gapped sw_pallas."""
+    targets_t (Lt, B): mmseqs2_tpu's gapped sw_pallas. q_len, t_lens and
+    prof_max as in the module docstring."""
     _check_single(profile, targets_t, None, go, ge)
-    if _on_cpu("sw_single", profile, targets_t):
-        return sw_single_plain(profile, targets_t, go, ge)
-    return _launch_kernel(sw_single, profile, targets_t, None, None, go, ge)
+    if _on_cpu("sw_single", profile, targets_t, t_lens):
+        return sw_single_plain(profile, targets_t, go, ge, q_len, t_lens,
+                               prof_max)
+    return _launch_single(sw_single, profile, targets_t, go, ge, True, q_len,
+                          t_lens, prof_max)
 
 
 def sw_offset(profile, targets_t, qoff, go=11, ge=1):
@@ -215,18 +323,22 @@ def sw_offset(profile, targets_t, qoff, go=11, ge=1):
     return _launch_kernel(sw_offset, profile, targets_t, None, qoff, go, ge)
 
 
-def sw_score(profile, targets_t, go=11, ge=1):
+def sw_score(profile, targets_t, go=11, ge=1, q_len=None, t_lens=None,
+             prof_max=None):
     """Scores alone, (B,) int32, without end tracking (mmseqs2_tpu's
-    sw_pallas_score)."""
+    sw_pallas_score); the arguments of sw_single."""
     _check_single(profile, targets_t, None, go, ge)
-    if _on_cpu("sw_score", profile, targets_t):
-        return sw_score_plain(profile, targets_t, go, ge)
-    return _launch_kernel(sw_score, profile, targets_t, None, None, go, ge,
-                          track=False)[0]
+    if _on_cpu("sw_score", profile, targets_t, t_lens):
+        return sw_score_plain(profile, targets_t, go, ge, q_len, t_lens,
+                              prof_max)
+    return _launch_single(sw_score, profile, targets_t, go, ge, False, q_len,
+                          t_lens, prof_max)[0]
 
 
 for _w in (sw_multi, sw_single, sw_offset, sw_score):
     _w.launches = 0
+for _w in (sw_single, sw_score):
+    _w.form_launches = {"int16": 0, "int32": 0}
 
 _LIB = None
 
@@ -238,7 +350,10 @@ def _lib():
         lib = load("sw")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.sw_multi_launch.argtypes = [p, i, i, p, i, i, p, p, i, i, i, i,
-                                        i, p, p, p, p, p, p]
+                                        p, p, p, p, p, p]
         lib.sw_multi_launch.restype = ctypes.c_int
+        lib.sw_single_launch.argtypes = [p, i, p, i, i, p, i, i, i, i, i, i,
+                                         p, p, p, p, p, p, p]
+        lib.sw_single_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB

@@ -83,7 +83,7 @@ class DeviceIndexServer:
 
     def scan(self, profile, cap, mode, go=11, ge=1):
         """profile: (A, Lq) int; returns scores (n_targets,) in DB order.
-        The gapless mode runs the score-only form."""
+        Both modes run the score-only kernel (gapless_score, sw_score)."""
         flat = self.store.scan(np.asarray(profile, np.int32), cap, mode, go,
                                ge, track=False)
         return self.store.in_db_order(flat.cpu().numpy())
@@ -93,7 +93,8 @@ class DeviceIndexServer:
         """Kernel launches of this process, by wrapper."""
         from ..ops import gapless, sw
         return {"gapless_score": gapless.gapless_score.launches,
-                "sw_single": sw.sw_single.launches}
+                "sw_single": sw.sw_single.launches,
+                "sw_score": sw.sw_score.launches}
 
     def serve(self):
         path = socket_path_for(self.db_path)

@@ -301,7 +301,8 @@ def test_gpuserver_round_trip(tmp_path, on_cpu):
         assert mine.max() > 0
         pong = device_server.ping_server(pad, timeout=30)
         assert pong["ok"] and pong["n_targets"] == 8
-        assert pong["launches"] == {"gapless_score": 0, "sw_single": 0}
+        assert pong["launches"] == {"gapless_score": 0, "sw_single": 0,
+                                    "sw_score": 0}
 
         # a request the server cannot serve fails the client, not the server
         with pytest.raises(RuntimeError, match="failed a request"):
@@ -318,6 +319,38 @@ def test_gpuserver_round_trip(tmp_path, on_cpu):
             proc.wait(timeout=30)
         if os.path.exists(sock):
             os.unlink(sock)
+
+
+def test_server_scans_run_the_score_only_kernels(tmp_path, on_cpu,
+                                                 monkeypatch):
+    """A request to the resident server runs the score-only kernel of its
+    mode (gapless_score, sw_score; here their plain versions), never the
+    end-tracking one, and its scores equal a tracked local scan."""
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    from mmseqs2_tpu_torch.ops import gapless as gapless_ops
+    from mmseqs2_tpu_torch.ops import sw as sw_ops
+    sub = subset_db(tmp_path, range(8), "sub")
+    pad = str(tmp_path / "pad")
+    run(["makepaddedseqdb", sub, pad])
+    server = device_server.DeviceIndexServer(
+        pad, get_submat("blosum62.out", 2.0, 0.0), device="cpu")
+    calls = []
+    for mod, name in ((gapless_ops, "gapless"), (gapless_ops, "gapless_score"),
+                      (sw_ops, "sw_single"), (sw_ops, "sw_score")):
+        def wrapper(*args, _fn=getattr(mod, name), _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(mod, name, wrapper)
+    profile = np.random.default_rng(1).integers(
+        -4, 8, size=(32, 40)).astype(np.int32)
+    for mode, kernel in ((prefilter_cmd.MODE_GAPLESS, "gapless_score"),
+                         (prefilter_cmd.MODE_GAPPED, "sw_score")):
+        calls.clear()
+        got = server.scan(profile, 250, mode)
+        assert calls and set(calls) == {kernel}
+        local = server.store.in_db_order(
+            server.store.scan(profile, 250, mode, 11, 1).numpy())
+        assert np.array_equal(got, local) and got.max() > 0
 
 
 def test_gpu_flag_without_a_server_warns_and_computes_locally(
