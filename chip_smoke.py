@@ -18,12 +18,14 @@ caught. Phases, each printing lines before the last:
      (sw_single, sw_offset, sw_score) at the shapes the exhaustive
      prefilter launches (one profile, Lq 128 to 4,096, Lt buckets 256 to
      2,048, 1,024 to 16,384 lanes, small and large bias, a case that
-     saturates at the cap, all-negative, cheap gaps); the gapless,
-     sw_single and sw_score cases pass the real query and target lengths,
-     and one shape runs again in the int32 form and with the lengths off
-     (and the strip-mined SW shape in the int32 form); sw_score must equal
-     sw_single's score; each row gives the form and the cells needed,
-     padded and computed;
+     saturates at the cap, all-negative, cheap gaps); every case passes
+     the real query and target lengths as its caller does (sw_multi's:
+     the forward pass's q_lens, the reverse pass's offsets, the longest
+     window and the profiles' maximum), and one shape of each kernel runs
+     again in the int32 form and with the lengths off (sw_multi: the Lq
+     512 forward and reverse shapes; and the strip-mined SW shape in the
+     int32 form); sw_score must equal sw_single's score; each row gives the
+     form and the cells needed, padded and computed;
   4. golden parity: the port's `align` on the 500-query toy set equals the
      reference MMseqs2 goldens (tests/golden/toy, tests/golden/alt): default
      and non-default scoring, --realign, --alt-ali, --corr-score-weight;
@@ -41,15 +43,18 @@ caught. Phases, each printing lines before the last:
   5. real size, align only: `createdb` + `align -a` on N_TARGETS
      SwissProt-like targets and 1,000 queries with 300 synthetic prefilter
      candidates each (300,000 pairs), data made from a seed; launch counts
-     taken over this run; the first 16 queries' results equal a run with
-     the CPU requested (plain versions);
+     (by form: each int32 launch names the bound that ruled out int16) and
+     the cells the kernel computed against those needed, taken over this
+     run; the first 16 queries' results equal a run with the CPU requested
+     (plain versions);
   6. real size, the main path: `easy-search` of the same 1,000 queries
      against the same targets, from the FASTA files through createdb,
      prefilter, align and convertalis, no synthetic prefilter DB; every
      kernel's launch count is set to 0 just before and read just after;
      wall time, queries/s, the split of the wall, the queries that took the
-     host-oracle route, the hits; the first 32 queries' lines equal a run
-     with the CPU requested; then the prefilter step once more under
+     host-oracle route, the hits, sw_multi's launches by form and its
+     computed cells against those needed; the first 32 queries' lines equal
+     a run with the CPU requested; then the prefilter step once more under
      torch.profiler. (Phase 4's prefilter runs also show that a flush is
      dispatched with no synchronisation: PyTorch's sync debug mode raises
      on one);
@@ -101,20 +106,19 @@ N_TARGETS = 50_000
 # the data sheet, 67 TFLOP/s, is 132 x 128 lanes x 2 (FMA) x 1.98 GHz)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int32 instructions one affine-gap SW cell needs at the least, in Hopper's
-# DPX forms (csrc/sw.cu lists them): H - go 1 (shared by E and F), E and F
-# one __viaddmax_s32 each, max(diag + s, E) one __viaddmax_s32,
-# max(., F, 0) one __vimax_s32_relu, running best 1. The data sheet gives no
-# DPX rate; the bound takes one DPX instruction per int32 lane and clock.
-SW_OPS_PER_CELL = 6
-# the same count by form of sw_single_kernel (sw_single, sw_score): the int32
-# form as above; the int16 form does the five recurrence steps as s16x2 DPX
-# instructions for two cells each (__vadd2 for H - go, __viaddmax_s16x2 for
-# E, F and max(diag + s, E), __viaddmax_s16x2_relu with F and 0) and the
-# running (or column) max as one __vimax3_s16x2 per four cells: 2.75 a
-# cell. Score-only and tracking count the same: tracking's compare is once
-# per column
-SW_SINGLE_OPS_PER_CELL = {"int32": SW_OPS_PER_CELL, "int16": 2.75}
+# int32 instructions one affine-gap SW cell needs at the least, by form of
+# the SW kernel (csrc/sw.cu lists them; every entry point: sw_multi,
+# sw_offset, sw_single, sw_score). int32 form, in Hopper's DPX forms: H - go 1
+# (shared by E and F), E and F one __viaddmax_s32 each, max(diag + s, E) one
+# __viaddmax_s32, max(., F, 0) one __vimax_s32_relu, running best 1. The
+# int16 form does the five recurrence steps as s16x2 DPX instructions for two
+# cells each (__vadd2 for H - go, __viaddmax_s16x2 for E, F and
+# max(diag + s, E), __viaddmax_s16x2_relu with F and 0) and the running (or
+# column) max as one __vimax3_s16x2 per four cells: 2.75 a cell. Score-only
+# and tracking count the same: tracking's compare is once per column. The
+# data sheet gives no DPX rate; the bound takes one DPX instruction per int32
+# lane and clock.
+SW_OPS_PER_CELL = {"int32": 6, "int16": 2.75}
 # int32 operations one cell of the ungapped diagonal rescore needs at the
 # least: the score (lookup plus correction), the add-max-relu step of the
 # running sum, the running best
@@ -165,12 +169,14 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
-def sw_bound_ms(nq, lq, lt, lanes, cells):
+def sw_bound_ms(nq, lq, lt, lanes, cells, form):
     """Least time of one sw_multi launch: the `cells` its inputs need at
-    SW_OPS_PER_CELL int32 operations each, or its bytes (each input read
-    once, each output written once), whichever takes longer."""
-    ops_s = cells * SW_OPS_PER_CELL / INT32_OPS_PER_S
-    nbytes = nq * 32 * lq * 4 + lt * lanes + 2 * 4 * lanes + 3 * 4 * lanes
+    the form's SW_OPS_PER_CELL int32 operations each, or its bytes (each
+    input read once: profiles, letters, qsel, qoff, t_lens and q_lens; each
+    output written once), whichever takes longer."""
+    ops_s = cells * SW_OPS_PER_CELL[form] / INT32_OPS_PER_S
+    nbytes = (nq * 32 * lq * 4 + nq * 4 + lt * lanes + 3 * 4 * lanes
+              + 3 * 4 * lanes)
     bytes_s = nbytes / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
                                        else "bytes")
@@ -192,9 +198,11 @@ def sw_case(rng, submat, nq, lq, lt, lanes, reverse, negative=False,
     query profiles of the Lq bucket, lanes targets of the Lt bucket (half of
     them mutated fragments of their query), pad letter 31. The reverse pass
     takes the reversed profile (pad rows first) and qoff = lq - 1 - qend.
-    Also returns the cells the launch needs: per lane, its real query rows
-    at or past qoff times its real target length (pad rows and columns
-    cannot raise the best score)."""
+    Also returns what the aligner passes with them: each profile's real
+    length (the forward pass's q_lens), each lane's window end and target
+    length; and the cells the launch needs: per lane, its window rows
+    [qoff, end) times its real target length (pad rows and columns cannot
+    raise the best score)."""
     from mmseqs2_tpu_torch.ops.encode import make_query_profile
     mat = submat.sub_matrix.astype(np.int32)
     aa_idx = np.array([submat.aa2num[c] for c in AA])
@@ -224,16 +232,18 @@ def sw_case(rng, submat, nq, lq, lt, lanes, reverse, negative=False,
             t[:m] = frag[::-1] if reverse else frag
         tb[:n, b] = t
         tlen[b] = n
-    qlen = np.array([len(q) for q in qseqs], np.int64)[qsel]
+    q_lens = np.array([len(q) for q in qseqs], np.int32)
+    qlen = q_lens[qsel].astype(np.int64)
     if reverse:
         qend = (rng.random(lanes) * qlen).astype(np.int64)
         qoff = (lq - 1 - qend).astype(np.int32)
-        rows = qend + 1
+        ends = np.full(lanes, lq, np.int64)
     else:
         qoff = np.zeros(lanes, np.int32)
-        rows = qlen
-    cells = int((rows * tlen).sum())
-    return np.concatenate(profs), tb, qsel, qoff, cells
+        ends = qlen
+    cells = int(((ends - qoff) * tlen).sum())
+    return (np.concatenate(profs), tb, qsel, qoff, q_lens, ends,
+            tlen.astype(np.int32), cells)
 
 
 def phase_kernels(rng):
@@ -261,39 +271,83 @@ def phase_kernels(rng):
         "equality); ms = median of CUDA-event timings")
     rows = []
     for c in cases:
-        pf, tb, qsel, qoff, cells = sw_case(
+        pf, tb, qsel, qoff, q_lens, ends, tlen, cells = sw_case(
             rng, submat, c["nq"], c["lq"], c["lt"], c["lanes"], c["reverse"],
             c.get("negative", False), c.get("big", False))
-        args = [torch.from_numpy(a).cuda() for a in (pf, tb, qsel, qoff)]
+        args = [torch.from_numpy(a).cuda() for a in (pf, tb, qsel)]
+        qoff_d = torch.from_numpy(qoff).cuda()
         go, ge = c["go"], c["ge"]
-        got = sw.sw_multi(*args, go=go, ge=ge)
-        want = sw.sw_multi_plain(*args, go=go, ge=ge)
-        torch.cuda.synchronize()
-        err = max(int((g.long() - w.long()).abs().max()) for g, w in
-                  zip(got, want))
-        equal = all(torch.equal(g, w) for g, w in zip(got, want))
-        if c.get("negative"):
-            equal = equal and bool((got[0] == 0).all()) and bool(
-                (got[2] == -1).all()) and bool((got[1] == c["lq"] - 1).all())
-        ms = time_ms(lambda: sw.sw_multi(*args, go=go, ge=ge), 5)
-        plain_ms = time_ms(lambda: sw.sw_multi_plain(*args, go=go, ge=ge), 2)
-        bound, by = sw_bound_ms(c["nq"], c["lq"], c["lt"], c["lanes"], cells)
-        padded = c["lanes"] * c["lq"] * c["lt"]
-        name =(f"nq={c['nq']} lq={c['lq']} lt={c['lt']} lanes={c['lanes']} "
+        name = (f"nq={c['nq']} lq={c['lq']} lt={c['lt']} lanes={c['lanes']} "
                 f"{'reverse' if c['reverse'] else 'forward'} "
                 f"go/ge={go}/{ge}"
                 + (" all-negative" if c.get("negative") else "")
                 + (" bound>TPU-pack-limit" if c.get("big") else ""))
-        row = dict(case=name, equal=equal, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, cells_real=cells, cells_padded=padded,
-                   gcups_real=cells / ms / 1e6, gcups_padded=padded / ms / 1e6,
-                   bound_ms=bound, bound_by=by, bound_share=bound / ms,
-                   max_score=int(got[0].max()))
-        log("kernel-case " + json.dumps(row))
-        if not equal:
-            raise AssertionError(f"sw_multi differs from its plain version: "
-                                 f"{name} (max abs err {err})")
-        rows.append((c, row))
+        # the lengths as the aligner passes them: the forward pass q_lens
+        # per profile and no offset, the reverse pass the offset alone; the
+        # Lq 512 forward and reverse shapes run twice more, in the int32
+        # form (one entry raised to 40,000) and with the lengths off
+        variants = [(c, pf, True)]
+        if (c["nq"], c["lq"], c["lt"], go) == (16, 512, 512, 11) and not (
+                c.get("negative") or c.get("big")):
+            raised = pf.copy()
+            raised[0, 0] = 40_000
+            variants += [(dict(c, variant="int32 form"), raised, True),
+                         (dict(c, variant="lengths off"), pf, False)]
+        for cv, pv, with_lengths in variants:
+            pv_d = torch.from_numpy(pv).cuda()
+            pmax = int(pv.max())
+            if with_lengths:
+                window = int((ends - qoff).max())
+                kw = dict(go=go, ge=ge, prof_max=pmax, max_window=window,
+                          t_lens=torch.from_numpy(tlen).cuda())
+                if c["reverse"]:
+                    kw["qoff"] = qoff_d
+                else:
+                    kw["q_lens"] = torch.from_numpy(q_lens).cuda()
+                lane_ends, lane_t = ends, tlen
+            else:
+                window = int((c["lq"] - qoff).max())
+                kw = dict(go=go, ge=ge, qoff=qoff_d, prof_max=pmax,
+                          max_window=window)
+                lane_ends = np.full(c["lanes"], c["lq"])
+                lane_t = np.full(c["lanes"], c["lt"])
+            form = sw.pick_form(window, pmax, go, ge)
+            if c.get("big") and form != "int32":
+                raise AssertionError("the bound>TPU-pack-limit case did not "
+                                     "pick the int32 form")
+            computed = int((sw.rows_computed(form, window, lane_ends, qoff)
+                            * lane_t).sum())
+            got = sw.sw_multi(pv_d, *args[1:], **kw)
+            want = sw.sw_multi_plain(pv_d, *args[1:], **kw)
+            torch.cuda.synchronize()
+            err = max(int((g.long() - w.long()).abs().max()) for g, w in
+                      zip(got, want))
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            if c.get("negative"):
+                equal = equal and bool((got[0] == 0).all()) and bool(
+                    (got[2] == -1).all()) and bool(
+                    (got[1] == c["lq"] - 1).all())
+            ms = time_ms(lambda: sw.sw_multi(pv_d, *args[1:], **kw), 5)
+            plain_ms = time_ms(lambda: sw.sw_multi_plain(pv_d, *args[1:],
+                                                         **kw), 2)
+            bound, by = sw_bound_ms(c["nq"], c["lq"], c["lt"], c["lanes"],
+                                    cells, form)
+            padded = c["lanes"] * c["lq"] * c["lt"]
+            vname = name + (f" {cv['variant']}" if "variant" in cv
+                            else "") + f" [{form}]"
+            row = dict(case=vname, equal=equal, max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, form=form, lengths=with_lengths,
+                       cells_real=cells, cells_padded=padded,
+                       cells_computed=computed,
+                       gcups_real=cells / ms / 1e6,
+                       gcups_padded=padded / ms / 1e6, bound_ms=bound,
+                       bound_by=by, bound_share=bound / ms,
+                       max_score=int(got[0].max()))
+            log("kernel-case " + json.dumps(row))
+            if not equal:
+                raise AssertionError(f"sw_multi differs from its plain "
+                                     f"version: {vname} (max abs err {err})")
+            rows.append((cv, row))
     return rows
 
 
@@ -458,8 +512,8 @@ def phase_exhaustive_kernels(rng):
                                          "saturate")
 
     # sw_single and sw_score take single_case's real lengths and the
-    # profile's maximum, as gappedprefilter passes them; sw_offset runs as
-    # before (sw_multi_kernel, no lengths). The Lq 512 x Lt 512 x 16,384
+    # profile's maximum, as gappedprefilter passes them; sw_offset takes them
+    # too, with its longest window. The Lq 512 x Lt 512 x 16,384
     # arrays run twice more: in the int32 form (one profile entry raised so
     # that pick_form chooses it) and with the lengths off. The cases after
     # the first five draw from their own generator, so that the later
@@ -493,11 +547,19 @@ def phase_exhaustive_kernels(rng):
         if k < 5:
             qoff = rng.integers(0, qlen, size=c["lanes"]).astype(np.int32)
             cells_off = int(((qlen - qoff) * tlen).sum())
+            window = int((qlen - qoff).max())
+            form = sw.pick_form(window, int(prof.max()), c["go"], c["ge"])
+            computed = int((sw.rows_computed(form, window, qlen, qoff)
+                            * tlen).sum())
             compare("sw_offset", sw.sw_offset, sw.sw_offset_plain,
-                    [prof_d, tb_d, torch.from_numpy(qoff).cuda()], gaps, c,
-                    label, cells_off,
-                    single_bound_ms(*dims, cells_off, SW_OPS_PER_CELL, 3, 1),
-                    ok)
+                    [prof_d, tb_d, torch.from_numpy(qoff).cuda()],
+                    dict(gaps, q_len=qlen, t_lens=t_lens,
+                         prof_max=int(prof.max()), max_window=window), c,
+                    label + f" [{form}]", cells_off,
+                    single_bound_ms(*dims, cells_off, SW_OPS_PER_CELL[form],
+                                    3, 2),
+                    ok, dict(form=form, lengths=True,
+                             cells_computed=computed))
         variants = [(c, prof_d, True)]
         if dims == (512, 512, 16384) or c.get("n"):
             raised = prof_d.clone()
@@ -523,12 +585,12 @@ def phase_exhaustive_kernels(rng):
             single = compare(
                 "sw_single", sw.sw_single, sw.sw_single_plain, [pv, tb_d],
                 kw, cv, vlabel, cells,
-                single_bound_ms(*dims, cells, SW_SINGLE_OPS_PER_CELL[form],
+                single_bound_ms(*dims, cells, SW_OPS_PER_CELL[form],
                                 3, 1 if with_lengths else 0), ok, extra)
             score = compare(
                 "sw_score", sw.sw_score, sw.sw_score_plain, [pv, tb_d], kw,
                 cv, vlabel, cells,
-                single_bound_ms(*dims, cells, SW_SINGLE_OPS_PER_CELL[form],
+                single_bound_ms(*dims, cells, SW_OPS_PER_CELL[form],
                                 1, 1 if with_lengths else 0), ok, extra)
             if not torch.equal(score[0], single[0]):
                 raise AssertionError(f"sw_score differs from sw_single's "
@@ -1017,6 +1079,25 @@ def name_to_key(db):
     return out
 
 
+def align_forms(st):
+    """sw_multi's launches by form in one align run, held against the
+    aligner's record: each int32 launch names the bound that ruled out the
+    int16 form (the launch's longest window times its profiles' largest
+    entry, or the gap open), and pick_form agrees with it."""
+    from mmseqs2_tpu_torch.ops import sw
+    forms = dict(sw.sw_multi.form_launches)
+    bounds = st["int32_launches"]
+    wrong = [b for b in bounds if sw.pick_form(
+        b["window"], b["prof_max"], b["go"], b["ge"]) != "int32"]
+    if len(bounds) != forms["int32"] or wrong:
+        raise AssertionError(f"sw_multi's int32 launches ({forms}) and the "
+                             f"aligner's record ({len(bounds)}, {wrong[:3]}) "
+                             f"disagree")
+    for b in {json.dumps(b, sort_keys=True) for b in bounds}:
+        log(f"  int32 launch, ruled out int16 by: {b}")
+    return forms
+
+
 def phase_real_size(rng, n_targets=N_TARGETS, n_queries=1_000, max_seqs=300,
                     n_check=16):
     from mmseqs2_tpu_torch.align import aligner
@@ -1060,6 +1141,7 @@ def phase_real_size(rng, n_targets=N_TARGETS, n_queries=1_000, max_seqs=300,
     # the main path: counts set to 0 just before, read just after
     aligner.reset_stats()
     sw.sw_multi.launches = 0
+    sw.sw_multi.form_launches = dict.fromkeys(sw.sw_multi.form_launches, 0)
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1077,9 +1159,11 @@ def phase_real_size(rng, n_targets=N_TARGETS, n_queries=1_000, max_seqs=300,
         host_other_s=other, scan_host_s=st["scan_s"], kernel_s=kernel_s,
         backtrace_s=st["backtrace_s"], pairs_per_s=st["pairs"] / wall,
         cells_real=st["cells_real"], cells_padded=st["cells_padded"],
+        cells_computed=st["cells_computed"],
+        computed_over_needed=st["cells_computed"] / st["cells_real"],
         gcups_real=st["cells_real"] / kernel_s / 1e9,
         gcups_padded=st["cells_padded"] / kernel_s / 1e9,
-        launches=launches)
+        launches=launches, launches_by_form=align_forms(st))
     log("real-size " + json.dumps(res))
     if st["pairs"] != n_pairs:
         raise AssertionError(f"{st['pairs']} pairs aligned, {n_pairs} "
@@ -1179,6 +1263,7 @@ def phase_easy_search(n_queries=1_000, n_check=32):
     engine.STEP_SECONDS.clear()
     # the main path: counts set to 0 just before, read just after
     sw.sw_multi.launches = 0
+    sw.sw_multi.form_launches = dict.fromkeys(sw.sw_multi.form_launches, 0)
     rescore.diag_rescore.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1211,7 +1296,12 @@ def phase_easy_search(n_queries=1_000, n_check=32):
             prefilter_hits=pst["hits"]),
         align=dict(pairs=ast["pairs"], scan_host_s=ast["scan_s"],
                    kernel_s=ast["kernel_ms"] / 1e3,
-                   backtrace_s=ast["backtrace_s"]))
+                   backtrace_s=ast["backtrace_s"],
+                   cells_real=ast["cells_real"],
+                   cells_computed=ast["cells_computed"],
+                   computed_over_needed=ast["cells_computed"]
+                   / ast["cells_real"],
+                   sw_multi_launches_by_form=align_forms(ast)))
     log("easy-search " + json.dumps(res))
     if pst["queries"] != n_queries or n_hits == 0:
         raise AssertionError("the easy-search run wrote no results")
@@ -1276,7 +1366,6 @@ def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
         prefilter_cmd.reset_stats()
         for w in wrappers.values():
             w.launches = 0
-        for w in (gl.gapless, gl.gapless_score, sw.sw_single, sw.sw_score):
             w.form_launches = dict.fromkeys(w.form_launches, 0)
         torch.cuda.synchronize()
 
@@ -1508,7 +1597,8 @@ def main():
     # sw_offset, which has no caller and which phase 3 launches
     rep = next(r for c, r in rows if c["nq"] == 16 and c["lq"] == 512
                and c["lt"] == 512 and not c["reverse"] and c["go"] == 11
-               and not c.get("negative") and not c.get("big"))
+               and not c.get("negative") and not c.get("big")
+               and "variant" not in c)
     rrep = next(r for c, r in rrows if c["n_cand"] == 1 << 17
                 and "slots" not in c)
     kern = [dict(
@@ -1516,7 +1606,9 @@ def main():
         source="mmseqs2_tpu_torch/csrc/sw.cu",
         replaces="mmseqs2_tpu/ops/pallas_sw.py:106",
         launches=easy["launches"]["sw_multi"],
+        launches_by_form=easy["align"]["sw_multi_launches_by_form"],
         launches_align_only=real["launches"],
+        launches_align_only_by_form=real["launches_by_form"],
         max_abs_err=max(r["max_abs_err"] for _, r in rows),
         ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
         bound_by=rep["bound_by"], library_ms=None,

@@ -31,7 +31,7 @@ from ..device import get_device
 from ..ops.banded import banded_align_scores
 from ..ops.encode import (bucket_length, calc_local_aa_bias, round_bias_i8,
                           make_query_profile)
-from ..ops.sw import sw_multi
+from ..ops.sw import pick_form, rows_computed, sw_multi
 from . import util
 
 SCORE_ONLY = 0
@@ -43,17 +43,20 @@ PAD_LETTER = ALPHA_PAD - 1
 BUCKET_MIN = 32        # smallest query/target length bucket
 
 # Counters of the align stage, summed over every Aligner until reset_stats():
-# pairs through the forward and reverse scans, DP cells of both (real =
-# sequence lengths, padded = what the launches computed), host seconds spent
-# in the scans (packing, launches, read-back) and in the backtrace, and the
-# kernels' device milliseconds (CUDA events; 0 on the CPU).
+# pairs through the forward and reverse scans, DP cells of both (real = each
+# lane's window rows times its target length, padded = the launches' buckets,
+# computed = what the kernel's strips cover, ops/sw.py:rows_computed), host
+# seconds spent in the scans (packing, launches, read-back) and in the
+# backtrace, the kernels' device milliseconds (CUDA events; 0 on the CPU),
+# and for each launch in the int32 form the bound that ruled out int16.
 STATS = {}
 
 
 def reset_stats():
     STATS.clear()
     STATS.update(pairs=0, rev_pairs=0, cells_real=0, cells_padded=0,
-                 scan_s=0.0, kernel_ms=0.0, backtrace_s=0.0)
+                 cells_computed=0, scan_s=0.0, kernel_ms=0.0,
+                 backtrace_s=0.0, int32_launches=[])
 
 
 reset_stats()
@@ -157,14 +160,21 @@ class Aligner:
 
     # -- multi-query scan ------------------------------------------------------
 
-    def _multi_scan(self, entries):
+    def _multi_scan(self, entries, reverse=False):
         """Scan (query, target) pairs through sw_multi.
 
         entries: list of (ref, qkey, profile (A, lqb) int32, target_seq,
-        qoff). Pairs are grouped by (query-length bucket, target-length
-        bucket) and chunked to <= MULTI_NQ distinct profiles and MULTI_LANES
-        lanes per launch. Every chunk is launched before the first
-        read-back, so host packing overlaps the device.
+        qoff, qend): the lane's profile rows [qoff, qend), its window. The
+        forward pass's windows are [0, query length), the reverse pass's
+        [qoff, lqb) of the reversed profile. Pairs are grouped by (query-
+        length bucket, window bucket, target-length bucket), so that a
+        launch's strips fit its longest window, and chunked to <= MULTI_NQ
+        distinct profiles and MULTI_LANES lanes per launch. Each launch gets
+        the real lengths (the forward pass's q_lens per profile, the target
+        lengths per lane), the profiles' largest entry and the longest
+        window from the host, so nothing is read back before it. Every chunk
+        is launched before the first read-back, so host packing overlaps the
+        device.
 
         Returns {ref: (score, qend, tend)} (qend in full-profile
         coordinates; callers subtract qoff for the reverse pass)."""
@@ -173,47 +183,69 @@ class Aligner:
         timed = dev.type == "cuda"
         groups = {}
         for e in entries:
-            key = (e[2].shape[1],
+            key = (e[2].shape[1], bucket_length(max(e[5] - e[4], 1),
+                                                BUCKET_MIN),
                    bucket_length(max(len(e[3]), 1), BUCKET_MIN))
             groups.setdefault(key, []).append(e)
         pending = []
-        for (lqb, ltb), items in groups.items():
+        for (lqb, _, ltb), items in groups.items():
             NQ = (self.MULTI_NQ if lqb <= 1024
                   else 8 if lqb <= 2048 else 1)
             i = 0
             while i < len(items):
-                profs, slot, refs = [], {}, []
+                profs, ends, slot, refs = [], [], {}, []
                 n = min(self.MULTI_LANES, len(items) - i)
                 tb = np.full((ltb, n), PAD_LETTER, np.int8)
-                qsel = np.zeros(n, np.int32)
-                qoffs = np.zeros(n, np.int32)
+                qsel, qoffs, qends, tlens = (np.zeros(n, np.int32)
+                                             for _ in range(4))
                 lane = 0
                 while i < len(items) and lane < n:
-                    ref, qkey, prof, seq, qo = items[i]
+                    ref, qkey, prof, seq, qo, qe = items[i]
                     if qkey not in slot:
                         if len(profs) == NQ:
                             break
                         slot[qkey] = len(profs)
                         profs.append(prof)
+                        ends.append(qe)
                     tb[: len(seq), lane] = seq
                     qsel[lane] = slot[qkey]
                     qoffs[lane] = qo
+                    qends[lane] = qe
+                    tlens[lane] = len(seq)
                     refs.append(ref)
                     lane += 1
                     i += 1
                 pf = np.concatenate(profs, axis=0)
-                args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                        for a in (pf, tb[:, :lane], qsel[:lane],
-                                  qoffs[:lane])]
+                window = int((qends[:lane] - qoffs[:lane]).max())
+                prof_max = int(pf.max())
+                form = pick_form(window, prof_max, self.go, self.ge)
+                if form == "int32":
+                    STATS["int32_launches"].append(dict(
+                        window=window, prof_max=prof_max,
+                        score_bound=window * max(prof_max, 0), go=self.go,
+                        ge=self.ge))
+                # the reverse pass's windows end at lqb (q_lens None), the
+                # forward pass's start at 0 (qoff None)
+                win = (qoffs[:lane], None) if reverse else (
+                    None, np.array(ends, np.int32))
+                args = [None if a is None else
+                        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in (pf, tb[:, :lane], qsel[:lane], *win,
+                                  tlens[:lane])]
                 ev = None
                 if timed:
                     ev = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
                     ev[0].record()
-                out = sw_multi(*args, go=self.go, ge=self.ge)
+                out = sw_multi(*args[:4], go=self.go, ge=self.ge,
+                               q_lens=args[4], t_lens=args[5],
+                               prof_max=prof_max, max_window=window)
                 if timed:
                     ev[1].record()
                 STATS["cells_padded"] += lane * lqb * ltb
+                STATS["cells_computed"] += int((rows_computed(
+                    form, window, qends[:lane], qoffs[:lane])
+                    * tlens[:lane]).sum())
                 pending.append((refs, torch.stack(out), ev))
         result = {}
         for refs, out, ev in pending:
@@ -266,7 +298,7 @@ class Aligner:
             per_sw.append(sw_idx)
             qL = len(ctx.q_num)
             for i in sw_idx:
-                fwd_entries.append(((j, i), j, ctx.profile, seqs[i], 0))
+                fwd_entries.append(((j, i), j, ctx.profile, seqs[i], 0, qL))
                 STATS["cells_real"] += qL * len(seqs[i])
             STATS["pairs"] += len(sw_idx)
 
@@ -316,11 +348,13 @@ class Aligner:
                 rev_prof[j] = np.ascontiguousarray(ctx.profile[:, ::-1])
             qoff = ctx.profile.shape[1] - 1 - rev_qe[k]
             rev_qoff[k] = qoff
-            rev_entries.append((k, j, rev_prof[j], rev_targets[k], qoff))
+            rev_entries.append((k, j, rev_prof[j], rev_targets[k], qoff,
+                                ctx.profile.shape[1]))
             STATS["cells_real"] += (rev_qe[k] + 1) * len(rev_targets[k])
         STATS["rev_pairs"] += len(rev_entries)
         rev_out = {}
-        for k, (rs, rqe2, rte2) in self._multi_scan(rev_entries).items():
+        for k, (rs, rqe2, rte2) in self._multi_scan(
+                rev_entries, reverse=True).items():
             rev_out[k] = (rs, rqe2 - rev_qoff[k], rte2)
 
         t_bt = time.perf_counter()

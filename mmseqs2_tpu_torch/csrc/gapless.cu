@@ -265,7 +265,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
         const int j = j0 + jj;
         const int c = __shfl_sync(kFull, tch, jj);
         typename std::remove_reference<decltype(st.H[0])>::type s[N];
-        load_strip<N>(pbase + static_cast<size_t>(c) * nwords, s);
+        load_strip<N>(pbase + static_cast<size_t>(c) * nwords, 32 * G, s);
         unsigned hb_j = 0;
         if (has_prev && tid == 0) hb_j = static_cast<unsigned>(hbl[j]);
         unsigned top = __shfl_up_sync(kFull, st.last(), 1);
@@ -346,7 +346,8 @@ extern "C" int gapless_launch(const int32_t* prof, int lq,
   const int n = int16 ? rows / 2 : rows;  // words per thread and column
   const int nwords = 32 * n * nchunks;
   const int err =
-      packed_profile::pack(prof, lq, n, int16 != 0, nchunks, packed, st);
+      packed_profile::pack(prof, 1, lq, n, int16 != 0, 32 * nchunks, 32,
+                           packed, st);
   if (err != 0) return err;
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((nlanes + kWarpsPerBlock - 1) / kWarpsPerBlock);

@@ -4,9 +4,9 @@
 // Replaces the TPU kernel `_kernel` of mmseqs2_tpu/ops/pallas_sw.py in its
 // gapped forms. The TPU layout (query rows on sublanes, targets on lanes, a
 // one-hot bf16 MXU lookup, f32 state and packed (score, column) tracking) is
-// not carried over: each of those works around the TPU's vector unit. Both
-// kernels here follow the GPU design of the reference's own GPU path
-// (libmarv / CUDASW++ 4.0): one warp per lane.
+// not carried over: each of those works around the TPU's vector unit. The
+// kernel follows the GPU design of the reference's own GPU path (libmarv /
+// CUDASW++ 4.0): one warp per lane.
 //
 // Semantics (those of the TPU kernel), per lane over query rows i and target
 // columns j, with a gap of length k costing go + (k - 1) * ge, go >= ge >= 0:
@@ -23,16 +23,28 @@
 // the smallest row attaining it in that column. A lane with no positive
 // cell reports (0, lq - 1, -1).
 //
-// Two kernels:
-//   sw_multi_kernel   sw_multi (`sw_pallas_multi`: nq profiles, qsel and
-//                     qoff per lane) and sw_offset (`sw_pallas_offset`: one
-//                     profile, qoff per lane). Every padded cell, int32.
-//   sw_single_kernel  sw_single (`sw_pallas`, gapped; TRACK) and sw_score
-//                     (`sw_pallas_score`: the score alone): one profile, no
-//                     offset; real lengths, a packed profile, an int16 DPX
-//                     form. Its design follows.
-//
-// sw_single_kernel
+// One kernel template, sw_kernel, serves every entry point of ops/sw.py:
+//   sw_multi   (`sw_pallas_multi`): nq profiles, qsel and qoff per lane;
+//   sw_offset  (`sw_pallas_offset`): one profile, qoff per lane;
+//   sw_single  (`sw_pallas`, gapped): one profile, no offset;
+//   sw_score   (`sw_pallas_score`): sw_single's score alone (TRACK false).
+// Its design:
+//   - The row window. Lane b runs profile q = qsel[b] (0 when qsel is
+//     null) over the rows [qoff[b], end_q), end_q = qlens[q] (qlen when
+//     qlens is null): rows below qoff[b] score as pad, as the plain
+//     version's offset mask has them, and every entry of profile q's rows
+//     at or past end_q is at most -(1 << 20) (the caller's contract). The
+//     reverse pass of the aligner reads the reversed profile, whose pad rows
+//     come first, so its window is [qoff, lq); the forward pass's is
+//     [0, query length). The warp's strips start at the strip holding
+//     qoff[b] (row qoff[b] rounded down to the strip height R), and it runs
+//     the ceil((end_q - that row) / (32 * R)) chunks its window needs, a
+//     count uniform across the warp. The m < R rows of the first strip below
+//     qoff[b] belong to thread 0 of the first chunk: there its scores are
+//     saturated (int16 -32768, int32 -(1 << 30)) behind a warp-uniform test,
+//     so those rows hold H = 0, as the rows above the first strip do, and
+//     can never be the best (best > 0 is required). A lane whose window is
+//     empty runs no chunk.
 //   - Lazy F by the exact prefix-max closure. Writing F' = F + go,
 //     F'[i+1] = max(F'[i] - ge, Hng[i]) (go >= ge), so F' entering a strip
 //     of R rows is max(F' entering the strip above - R * ge, the F' its own
@@ -47,7 +59,7 @@
 //     F' - go, at least -go, and diag + s, at least -32768 in the int16
 //     form (profile entries saturate there, and diag >= 0).
 //   - Two forms, chosen by the caller from the input's range (ops/sw.py:
-//     pick_form), never on failure; one kernel template over `Sw32` or
+//     pick_form), never on failure; the template runs over `Sw32` or
 //     `Sw16`, which hold a thread's state:
 //       int16: two rows per 32-bit register as s16x2, the pairs (row0 + k,
 //         row0 + NP + k) of a strip of R = 2 * NP rows, so that pair k's
@@ -57,31 +69,34 @@
 //         __viaddmax_s16x2_relu for Hng). The F' chain of the high half
 //         starts inside the strip, so its entering F' is closed in two steps:
 //         max(F' entering the strip - NP * ge, the low half's own F' out).
-//         Exact when score = q_len * max(profile max, 0) < 32768 and go <
-//         32768: then no sum leaves the 16-bit range.
+//         Exact when score = (the launch's longest window) * max(profile
+//         max, 0) < 32768 and go < 32768: then no sum leaves the 16-bit
+//         range.
 //       int32: any other input; one row per register, the same recurrence
 //         in __viaddmax_s32 / __viaddmax_s32_relu.
-//   - Real lengths. The strips cover q_len (the profile's real rows; rows
-//     past it score at most -(1 << 20) for every letter) rounded to the
-//     strip plan, and each warp stops at tlens[b] (columns past it hold
-//     letter 31, whose profile row is at most -(1 << 20) on the real rows).
-//     Unlike a gapless cell, a cell past a length need not be 0: a gap can
-//     run into it. But every such cell is strictly below the H of a real
-//     cell, or equal to one in an earlier column or a smaller row (go = 0,
-//     reached by a gap), and it feeds only cells past the lengths. So
-//     skipping them keeps the score and the (first column, smallest row)
-//     end, bit for bit. tlens == null means every lane is lt long.
-//   - The profile is packed once per call (packed_profile.cuh) so that the
-//     32 threads' vectors of one load are adjacent.
+//   - Real lengths. Besides the window's end, each warp stops at tlens[b]
+//     (columns past it hold letter 31, whose profile row is at most
+//     -(1 << 20) on the real rows). Unlike a gapless cell, a cell past a
+//     length need not be 0: a gap can run into it. But every such cell is
+//     strictly below the H of a real cell, or equal to one in an earlier
+//     column or a smaller row (go = 0, reached by a gap), and it feeds only
+//     cells past the lengths. So skipping them keeps the score and the
+//     (first column, smallest row) end, bit for bit. tlens == null means
+//     every lane is lt long.
+//   - The profiles are packed once per call, all nq in one launch ahead of
+//     the scan (packed_profile.cuh), so that the 32 threads' vectors of one
+//     load are adjacent for any first strip. Strips past the last packed
+//     one (cdiv(lq, R), all pad) load that one.
 //   - End tracking: the int16 form folds a column's pairs into one max
 //     (__vimax3_s16x2) and compares it with its best in one __vmaxs2; on a
 //     rise it keeps the column's pairs and searches them for the smallest
 //     row once, at the end of the chunk. The int32 form tracks per cell with
-//     a strict >. The warp reduces by (max score, min column, min row).
-//   - Long queries: a warp covers 32 * R rows at a time (R <= 64 in the
-//     int16 form, 32 in the int32 form). Longer queries are strip-mined:
-//     each chunk walks its lane's columns and leaves, per column, the H and
-//     the F' of its last row in global scratch (hb, gb: nlanes x lt int32),
+//     a strict >. The warp reduces by (max score, min column, min row); qend
+//     is in full-profile coordinates.
+//   - Long windows: a warp covers 32 * R rows at a time (R <= 64 in the
+//     int16 form, 32 in the int32 form). Longer ones are strip-mined: each
+//     chunk walks its lane's columns and leaves, per column, the H and the
+//     F' of its last row in global scratch (hb, gb: nlanes x lt int32),
 //     read and written only for the columns a lane computes.
 //
 // What bounds it: integer operations. A cell needs at least 6 int32
@@ -91,14 +106,12 @@
 // int16 form does the five steps for two cells per instruction and the
 // running best for four (one __vimax3_s16x2): 2.75 a cell. chip_smoke.py's
 // bound takes that count of the form that runs, at the card's int32 rate,
-// over the cells a launch needs (real query rows, at or past qoff, times
-// real target columns). sw_multi_kernel issues about 18 plain int32
-// instructions per padded cell (the recurrence, the prefix-max F closure
-// and full end tracking, without DPX); its profile rows are read as 16-byte
-// vectors, a strip's rows side by side.
+// over the cells a launch needs (each lane's window rows times its real
+// target columns).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "packed_profile.cuh"
 
@@ -107,187 +120,13 @@ namespace {
 using packed_profile::better;
 using packed_profile::group_of;
 using packed_profile::kAlpha;
+using packed_profile::kPastEnd;
 using packed_profile::load_strip;
 
 constexpr int kWarpsPerBlock = 4;
-constexpr int kNegInf = -(1 << 28);
 constexpr unsigned kFull = 0xffffffffu;
 
-// -- sw_multi_kernel (sw_multi, sw_offset) ------------------------------------
-//
-// One warp per lane. The 32 threads split the query rows into contiguous
-// strips of R rows held in registers; the warp walks the target columns in
-// order. The first row of a strip takes the previous column's H of the last
-// row of the strip above through one __shfl_up_sync. Lazy F is closed exactly
-// by the prefix-max identity
-//   F[i] = max_{k<i}(Hng[k] + k*ge) - go - (i-1)*ge     (go >= ge)
-// as a running max over the thread's strip plus a warp inclusive max-scan of
-// the strip totals (5 shuffles per column). State is int32; NEG_INF =
-// -(1 << 28) leaves room for profile scores of magnitude up to 1 << 20 (the
-// profile pad) without overflow. Rows below qoff[b] score NEG_INF, confining
-// the lane to the query suffix starting at qoff[b] (the reverse start-position
-// pass). Each thread keeps (best, first column, smallest row in that column).
-// Long queries: a warp covers 1024 query rows at a time; each chunk of 1024
-// rows walks all target columns and leaves, per column, the H of its last row
-// and the running max of Hng[k] + k*ge in global scratch for the next chunk
-// (hb, gb: nlanes x lt int32 each).
-
-template <int R>
-__device__ __forceinline__ void load_scores(const int32_t* __restrict__ srow,
-                                            int nvalid, bool vec, int (&s)[R]) {
-  if constexpr (R % 4 == 0) {
-    if (vec && nvalid == R) {
-#pragma unroll
-      for (int r = 0; r < R; r += 4) {
-        const int4 v = __ldg(reinterpret_cast<const int4*>(srow + r));
-        s[r] = v.x;
-        s[r + 1] = v.y;
-        s[r + 2] = v.z;
-        s[r + 3] = v.w;
-      }
-      return;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) s[r] = r < nvalid ? __ldg(srow + r) : 0;
-}
-
-template <int R>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    sw_multi_kernel(const int32_t* __restrict__ prof, int nq, int lq,
-                    const int8_t* __restrict__ targets, int lt, int nlanes,
-                    const int32_t* __restrict__ qsel,
-                    const int32_t* __restrict__ qoff, int go, int ge, bool vec,
-                    int32_t* __restrict__ out_score,
-                    int32_t* __restrict__ out_qend,
-                    int32_t* __restrict__ out_tend, int32_t* __restrict__ hb,
-                    int32_t* __restrict__ gb) {
-  const int tid = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= nlanes) return;  // uniform across the warp
-  const int q = qsel ? __ldg(qsel + b) : 0;  // null: one profile
-  if (q < 0 || q >= nq) __trap();
-  const int off = qoff ? __ldg(qoff + b) : 0;
-  const int32_t* pq = prof + static_cast<size_t>(q) * kAlpha * lq;
-  constexpr int kChunk = 32 * R;
-  const int nchunks = (lq + kChunk - 1) / kChunk;
-  int32_t* hbl = hb + static_cast<size_t>(b) * lt;  // used iff nchunks > 1
-  int32_t* gbl = gb + static_cast<size_t>(b) * lt;
-
-  int best = 0, best_c = -1, best_r = lq - 1;
-
-  for (int ck = 0; ck < nchunks; ++ck) {
-    const int row0 = ck * kChunk + tid * R;
-    const int nvalid = min(max(lq - row0, 0), R);
-    const bool has_prev = ck > 0;
-    const bool has_next = ck + 1 < nchunks;
-    int H[R], E[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      H[r] = 0;
-      E[r] = kNegInf;
-    }
-    int cb = 0, cc = -1, cr = lq - 1;  // this chunk's best
-    int hdiag = 0;  // thread 0: H[row0 - 1][j - 1] from the chunk above
-
-    for (int j0 = 0; j0 < lt; j0 += 32) {
-      const int jn = min(32, lt - j0);
-      int tch = 0;
-      if (tid < jn)
-        tch = targets[static_cast<size_t>(j0 + tid) * nlanes + b];
-      for (int jj = 0; jj < jn; ++jj) {
-        const int j = j0 + jj;
-        const int c = __shfl_sync(kFull, tch, jj);
-        if (c < 0 || c >= kAlpha) __trap();
-        int s[R];
-        load_scores<R>(pq + static_cast<size_t>(c) * lq + row0, nvalid, vec,
-                       s);
-        int hb_j = 0, gb_j = kNegInf;
-        if (has_prev && tid == 0) {
-          hb_j = hbl[j];
-          gb_j = gbl[j];
-        }
-        int hprev = __shfl_up_sync(kFull, H[R - 1], 1);
-        if (tid == 0) {
-          hprev = hdiag;
-          hdiag = hb_j;
-        }
-        // pass 1: E, H before F, and the strip's max of G = Hng + i*ge
-        int gmax = kNegInf;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int i = row0 + r;
-          int hng = 0;
-          if (r < nvalid) {
-            const int sc = i < off ? s[r] + kNegInf : s[r];
-            const int e = max(H[r] - go, E[r] - ge);
-            E[r] = e;
-            hng = max(max(hprev + sc, e), 0);
-            gmax = max(gmax, hng + i * ge);
-          }
-          hprev = H[r];
-          H[r] = hng;
-        }
-        // warp inclusive max-scan of the strip maxima (thread 0 folds in
-        // the rows of the chunks above)
-        int v = tid == 0 ? max(gmax, gb_j) : gmax;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int o = __shfl_up_sync(kFull, v, d);
-          if (tid >= d) v = max(v, o);
-        }
-        int run = __shfl_up_sync(kFull, v, 1);
-        if (tid == 0) run = gb_j;
-        // pass 2: F, final H, end tracking
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (r < nvalid) {
-            const int i = row0 + r;
-            const int hng = H[r];
-            const int h = max(hng, run - go - (i - 1) * ge);
-            H[r] = h;
-            run = max(run, hng + i * ge);
-            if (h > cb) {
-              cb = h;
-              cc = j;
-              cr = i;
-            }
-          }
-        }
-        if (has_next && tid == 31) {
-          hbl[j] = H[R - 1];
-          gbl[j] = v;
-        }
-      }
-    }
-    if (better(cb, cc, cr, best, best_c, best_r)) {
-      best = cb;
-      best_c = cc;
-      best_r = cr;
-    }
-  }
-
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    const int s2 = __shfl_xor_sync(kFull, best, d);
-    const int c2 = __shfl_xor_sync(kFull, best_c, d);
-    const int r2 = __shfl_xor_sync(kFull, best_r, d);
-    if (better(s2, c2, r2, best, best_c, best_r)) {
-      best = s2;
-      best_c = c2;
-      best_r = r2;
-    }
-  }
-  if (tid == 0) {
-    out_score[b] = best;
-    const bool pos = best > 0;
-    out_qend[b] = pos ? best_r : lq - 1;
-    out_tend[b] = pos ? best_c : -1;
-  }
-}
-
-
-// -- sw_single_kernel (sw_single, sw_score) -----------------------------------
+// -- the strip types -----------------------------------------------------------
 
 // int32 form: R rows, one per register.
 template <int R, bool TRACK>
@@ -312,6 +151,12 @@ struct Sw32 {
   }
   __device__ unsigned last() const { return static_cast<unsigned>(H[R - 1]); }
   __device__ int last_row() const { return H[R - 1]; }
+  // the strip's first m rows score as pad
+  __device__ static void mask(int (&s)[R], int m) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < m) s[r] = kPastEnd;
+  }
   // E', Hng (into H) and the F' leaving the strip from its own rows; top:
   // H[row0 - 1][j - 1]
   __device__ int pass1(const int (&s)[R], unsigned top) {
@@ -379,6 +224,14 @@ struct Sw16 {
   // the high half of the last pair is the strip's last row
   __device__ unsigned last() const { return H[NP - 1]; }
   __device__ int last_row() const { return static_cast<int>(H[NP - 1] >> 16); }
+  // the strip's first m rows score as pad: a half of row < m saturates to
+  // -32768, its neighbour keeps its score
+  __device__ static void mask(unsigned (&s)[NP], int m) {
+#pragma unroll
+    for (int k = 0; k < NP; ++k)
+      s[k] = __vmins2(s[k], (k < m ? 0x8000u : 0x7fffu) |
+                                (NP + k < m ? 0x80000000u : 0x7fff0000u));
+  }
   // max over both halves of all pairs, folded into m
   __device__ unsigned fold(unsigned m) const {
 #pragma unroll
@@ -453,24 +306,39 @@ struct Sw16 {
 // the high half.
 template <typename S, bool TRACK, bool PAIRS>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    sw_single_kernel(const uint32_t* __restrict__ prof, int nwords, int lq,
-                     int nchunks, const int8_t* __restrict__ targets, int lt,
-                     int nlanes, const int32_t* __restrict__ tlens, int go,
-                     int ge, int32_t* __restrict__ out_score,
-                     int32_t* __restrict__ out_qend,
-                     int32_t* __restrict__ out_tend, int32_t* __restrict__ hb,
-                     int32_t* __restrict__ gb) {
+    sw_kernel(const uint32_t* __restrict__ prof, int nq, int nstrips, int lq,
+              int qlen, const int32_t* __restrict__ qlens,
+              const int32_t* __restrict__ qsel,
+              const int32_t* __restrict__ qoff,
+              const int8_t* __restrict__ targets, int lt, int nlanes,
+              const int32_t* __restrict__ tlens, int go, int ge,
+              int32_t* __restrict__ out_score, int32_t* __restrict__ out_qend,
+              int32_t* __restrict__ out_tend, int32_t* __restrict__ hb,
+              int32_t* __restrict__ gb) {
   constexpr int N = S::kWords;
+  constexpr int R = S::kRows;
   constexpr int G = group_of(N);
   const int tid = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (b >= nlanes) return;  // uniform across the warp
+  const int q = qsel == nullptr ? 0 : qsel[b];
+  if (q < 0 || q >= nq) __trap();
+  // the window [off, end): its first strip s0, the m rows of s0 below off,
+  // and the chunks that cover it
+  const int end = qlens == nullptr ? qlen : min(max(qlens[q], 0), lq);
+  const int off = qoff == nullptr ? 0 : max(qoff[b], 0);
+  const int s0 = off / R;
+  const int m = off - s0 * R;
+  const int nchunks =
+      end > off ? (end - s0 * R + 32 * R - 1) / (32 * R) : 0;
   const int tl = tlens == nullptr ? lt : min(max(tlens[b], 0), lt);
+  const int nwords = N * nstrips;  // words of one profile row (letter)
+  const uint32_t* pq = prof + static_cast<size_t>(q) * kAlpha * nwords;
   int32_t* hbl = hb + static_cast<size_t>(b) * lt;  // used iff nchunks > 1
   int32_t* gbl = gb + static_cast<size_t>(b) * lt;
   // the prefix-max ramp of this strip and of one strip, from the chunk's
   // first strip
-  const int step = S::kRows * ge;
+  const int step = R * ge;
   const int ramp = tid * step;
 
   int best = 0, best_c = -1, best_r = lq - 1;
@@ -478,55 +346,68 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   st.setup(go, ge);
 
   for (int ck = 0; ck < nchunks; ++ck) {
-    const int row0 = (ck * 32 + tid) * S::kRows;
+    const int strip = s0 + ck * 32 + tid;
     const uint32_t* pbase =
-        prof + static_cast<size_t>(ck) * 32 * N + tid * G;
+        pq + static_cast<size_t>(min(strip, nstrips - 1)) * G;
     const bool has_prev = ck > 0;
     const bool has_next = ck + 1 < nchunks;
-    st.reset(lq, row0);
+    st.reset(lq, strip * R);
     int hdiag = 0;  // thread 0: H[row0 - 1][j - 1] from the chunk above
     __syncwarp();   // the chunk above's hb/gb writes are visible
 
-    for (int j0 = 0; j0 < tl; j0 += 32) {
-      const int jn = min(32, tl - j0);
-      int tch = 0;
-      if (tid < jn) {
-        tch = targets[static_cast<size_t>(j0 + tid) * nlanes + b];
-        if (static_cast<unsigned>(tch) >= kAlpha) __trap();
-      }
-      for (int jj = 0; jj < jn; ++jj) {
-        const int j = j0 + jj;
-        const int c = __shfl_sync(kFull, tch, jj);
-        typename S::Word s[N];
-        load_strip<N>(pbase + static_cast<size_t>(c) * nwords, s);
-        int hb_j = 0, gb_j = 0;  // gb: F' entering the chunk's first row
-        if (has_prev && tid == 0) {
-          hb_j = hbl[j];
-          gb_j = gbl[j];
+    // the lane's columns; `masked` (warp-uniform) saturates thread 0's rows
+    // below off, which only the first chunk holds
+    auto walk = [&](auto masked) {
+      for (int j0 = 0; j0 < tl; j0 += 32) {
+        const int jn = min(32, tl - j0);
+        int tch = 0;
+        if (tid < jn) {
+          tch = targets[static_cast<size_t>(j0 + tid) * nlanes + b];
+          if (static_cast<unsigned>(tch) >= kAlpha) __trap();
         }
-        unsigned top = __shfl_up_sync(kFull, st.last(), 1);
-        if (tid == 0) {
-          top = PAIRS ? static_cast<unsigned>(hdiag) << 16
-                      : static_cast<unsigned>(hdiag);
-          hdiag = hb_j;
-        }
-        // warp inclusive max-scan of (strip summary + ramp); thread 0 folds
-        // in the F' entering the chunk
-        int v = st.pass1(s, top) + ramp;
-        if (tid == 0) v = max(v, gb_j - step);
+        for (int jj = 0; jj < jn; ++jj) {
+          const int j = j0 + jj;
+          const int c = __shfl_sync(kFull, tch, jj);
+          typename S::Word s[N];
+          load_strip<N>(pbase + static_cast<size_t>(c) * nwords, nstrips * G,
+                        s);
+          if constexpr (decltype(masked)::value) {
+            if (tid == 0) S::mask(s, m);
+          }
+          int hb_j = 0, gb_j = 0;  // gb: F' entering the chunk's first row
+          if (has_prev && tid == 0) {
+            hb_j = hbl[j];
+            gb_j = gbl[j];
+          }
+          unsigned top = __shfl_up_sync(kFull, st.last(), 1);
+          if (tid == 0) {
+            top = PAIRS ? static_cast<unsigned>(hdiag) << 16
+                        : static_cast<unsigned>(hdiag);
+            hdiag = hb_j;
+          }
+          // warp inclusive max-scan of (strip summary + ramp); thread 0
+          // folds in the F' entering the chunk
+          int v = st.pass1(s, top) + ramp;
+          if (tid == 0) v = max(v, gb_j - step);
 #pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int o = __shfl_up_sync(kFull, v, d);
-          if (tid >= d) v = max(v, o);
-        }
-        const int above = __shfl_up_sync(kFull, v, 1);
-        st.pass2(tid == 0 ? gb_j : max(above - ramp + step, 0), j);
-        if (has_next && tid == 31) {
-          hbl[j] = st.last_row();
-          gbl[j] = max(v - ramp, 0);
+          for (int d = 1; d < 32; d <<= 1) {
+            const int o = __shfl_up_sync(kFull, v, d);
+            if (tid >= d) v = max(v, o);
+          }
+          const int above = __shfl_up_sync(kFull, v, 1);
+          st.pass2(tid == 0 ? gb_j : max(above - ramp + step, 0), j);
+          if (has_next && tid == 31) {
+            hbl[j] = st.last_row();
+            gbl[j] = max(v - ramp, 0);
+          }
         }
       }
-    }
+    };
+    if (ck == 0 && m > 0)
+      walk(std::true_type());
+    else
+      walk(std::false_type());
+
     const int cb = st.chunk_best();
     if constexpr (TRACK) {
       if (better(cb, st.cc, st.cr, best, best_c, best_r)) {
@@ -565,94 +446,67 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 }
 
 template <typename S, bool TRACK, bool PAIRS>
-void launch_single(dim3 grid, dim3 block, cudaStream_t st,
-                   const uint32_t* packed, int nwords, int lq, int nchunks,
-                   const int8_t* targets, int lt, int nlanes,
-                   const int32_t* tlens, int go, int ge, int32_t* score,
-                   int32_t* qend, int32_t* tend, int32_t* hb, int32_t* gb) {
-  sw_single_kernel<S, TRACK, PAIRS><<<grid, block, 0, st>>>(
-      packed, nwords, lq, nchunks, targets, lt, nlanes, tlens, go, ge, score,
-      qend, tend, hb, gb);
+void launch(dim3 grid, dim3 block, cudaStream_t st, const uint32_t* packed,
+            int nq, int nstrips, int lq, int qlen, const int32_t* qlens,
+            const int32_t* qsel, const int32_t* qoff, const int8_t* targets,
+            int lt, int nlanes, const int32_t* tlens, int go, int ge,
+            int32_t* score, int32_t* qend, int32_t* tend, int32_t* hb,
+            int32_t* gb) {
+  sw_kernel<S, TRACK, PAIRS><<<grid, block, 0, st>>>(
+      packed, nq, nstrips, lq, qlen, qlens, qsel, qoff, targets, lt, nlanes,
+      tlens, go, ge, score, qend, tend, hb, gb);
 }
 
 }  // namespace
 
-// Plain C entry point of sw_multi_kernel (bound with ctypes). qsel null
-// means profile 0 for every lane, qoff null offset 0. rstrip is the strip
-// height R (1, 2, 4, 8, 16 or 32); hb/gb must hold nlanes * lt int32 each
-// when lq > 32 * rstrip and may be null otherwise. Returns
-// cudaGetLastError().
-extern "C" int sw_multi_launch(const int32_t* prof, int nq, int lq,
-                               const int8_t* targets, int lt, int nlanes,
-                               const int32_t* qsel, const int32_t* qoff,
-                               int go, int ge, int vec, int rstrip,
-                               int32_t* score, int32_t* qend, int32_t* tend,
-                               int32_t* hb, int32_t* gb, void* stream) {
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((nlanes + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SW_CASE(R)                                                        \
-  case R:                                                                 \
-    sw_multi_kernel<R><<<grid, block, 0, st>>>(prof, nq, lq, targets, lt, \
-                                               nlanes, qsel, qoff, go, ge, \
-                                               vec != 0, score, qend,     \
-                                               tend, hb, gb);             \
-    break;
-  switch (rstrip) {
-    SW_CASE(1)
-    SW_CASE(2)
-    SW_CASE(4)
-    SW_CASE(8)
-    SW_CASE(16)
-    SW_CASE(32)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef SW_CASE
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Plain C entry point of sw_single_kernel (bound with ctypes). int16 != 0
-// selects the int16 form, 0 the int32 form; track != 0 writes score, qend
-// and tend, 0 the score alone (qend and tend may be null). rows is the strip
-// height, a thread's rows per chunk (int32: 1, 2, 4, 8, 12, ..., 32; int16:
-// 2, 4, 8, 12, ..., 64), and 32 * rows * nchunks covers the query's real
-// rows. packed must hold 32 * nwords uint32, nwords = 32 * rows * nchunks
-// (int32) or half of that (int16): the profile is packed there first. tlens
-// may be null (every lane lt long). hb and gb must hold nlanes * lt int32
-// each when nchunks > 1 and may be null otherwise. Returns the first
-// non-zero cudaGetLastError() of the two launches.
-extern "C" int sw_single_launch(const int32_t* prof, int lq,
-                                const int8_t* targets, int lt, int nlanes,
-                                const int32_t* tlens, int go, int ge,
-                                int track, int int16, int rows, int nchunks,
-                                uint32_t* packed, int32_t* score,
-                                int32_t* qend, int32_t* tend, int32_t* hb,
-                                int32_t* gb, void* stream) {
+// Plain C entry point of sw_kernel (bound with ctypes). prof: nq profiles,
+// (nq * 32, lq) int32. qlens (nq) null means every profile's window ends at
+// qlen; qsel null means profile 0 for every lane, qoff null offset 0; tlens
+// null means every lane is lt long. int16 != 0 selects the int16 form, 0
+// the int32 form; track != 0 writes score, qend and tend, 0 the score alone
+// (qend and tend may be null). rows is the strip height R, a thread's rows
+// per chunk (int32: 1, 2, 4, 8, 12, ..., 32; int16: 2, 4, 8, 12, ..., 64);
+// nstrips must be at least cdiv(lq, rows) + 1, and packed must hold nq * 32
+// * nstrips * rows uint32 (int32) or half of that (int16): the profiles are
+// packed there first. hb and gb must hold nlanes * lt int32 each when some
+// lane's window (from its first strip) is longer than 32 * rows, and may be
+// null otherwise. Returns the first non-zero cudaGetLastError() of the two
+// launches.
+extern "C" int sw_launch(const int32_t* prof, int nq, int lq, int qlen,
+                         const int32_t* qlens, const int32_t* qsel,
+                         const int32_t* qoff, const int8_t* targets, int lt,
+                         int nlanes, const int32_t* tlens, int go, int ge,
+                         int track, int int16, int rows, int nstrips,
+                         uint32_t* packed, int32_t* score, int32_t* qend,
+                         int32_t* tend, int32_t* hb, int32_t* gb,
+                         void* stream) {
+  if (rows < 1 || nstrips < (lq + rows - 1) / rows + 1 || qlen < 0 ||
+      qlen > lq)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = int16 ? rows / 2 : rows;  // words per thread and column
-  const int nwords = 32 * n * nchunks;
   const int err =
-      packed_profile::pack(prof, lq, n, int16 != 0, nchunks, packed, st);
+      packed_profile::pack(prof, nq, lq, n, int16 != 0, nstrips, nstrips,
+                           packed, st);
   if (err != 0) return err;
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((nlanes + kWarpsPerBlock - 1) / kWarpsPerBlock);
-#define SW_ARGS                                                             \
-  grid, block, st, packed, nwords, lq, nchunks, targets, lt, nlanes, tlens, \
-      go, ge, score, qend, tend, hb, gb
-#define SW32(R)                                                    \
-  case R:                                                          \
-    if (track)                                                     \
-      launch_single<Sw32<R, true>, true, false>(SW_ARGS);          \
-    else                                                           \
-      launch_single<Sw32<R, false>, false, false>(SW_ARGS);        \
+#define SW_ARGS                                                              \
+  grid, block, st, packed, nq, nstrips, lq, qlen, qlens, qsel, qoff,        \
+      targets, lt, nlanes, tlens, go, ge, score, qend, tend, hb, gb
+#define SW32(R)                                             \
+  case R:                                                   \
+    if (track)                                              \
+      launch<Sw32<R, true>, true, false>(SW_ARGS);          \
+    else                                                    \
+      launch<Sw32<R, false>, false, false>(SW_ARGS);        \
     break;
-#define SW16(R)                                                    \
-  case R:                                                          \
-    if (track)                                                     \
-      launch_single<Sw16<R / 2, true>, true, true>(SW_ARGS);       \
-    else                                                           \
-      launch_single<Sw16<R / 2, false>, false, true>(SW_ARGS);     \
+#define SW16(R)                                             \
+  case R:                                                   \
+    if (track)                                              \
+      launch<Sw16<R / 2, true>, true, true>(SW_ARGS);       \
+    else                                                    \
+      launch<Sw16<R / 2, false>, false, true>(SW_ARGS);     \
     break;
   if (int16) {
     switch (rows) {

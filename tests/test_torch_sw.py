@@ -362,25 +362,67 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def cut_to_lengths(prof_flat, targets, seed, shortest):
+    """Real lengths for make_case's arrays: each profile's rows past a
+    length in [shortest * lq, lq] and its pad letter's row score -(1 << 20),
+    and each target is cut to a length in [lt / 2, lt] (pad letter 31
+    past it). Returns (q_lens, t_lens) as int32 arrays."""
+    rng = np.random.default_rng(seed)
+    nq, lq = prof_flat.shape[0] // 32, prof_flat.shape[1]
+    q_lens = rng.integers(max(int(shortest * lq), 1), lq + 1,
+                          size=nq).astype(np.int32)
+    for q, n in enumerate(q_lens):
+        prof_flat[q * 32:(q + 1) * 32, n:] = -(1 << 20)
+        prof_flat[q * 32 + 31] = -(1 << 20)
+    b, lt = targets.shape
+    t_lens = rng.integers(lt // 2, lt + 1, size=b).astype(np.int32)
+    for k, n in enumerate(t_lens):
+        targets[k, n:] = 31
+    return q_lens, t_lens
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq,lq,lt,b,offsets", [
-    (1, 32, 40, 8, False), (4, 72, 40, 16, True), (16, 512, 300, 600, True),
-    (1, 2500, 200, 40, True)])
-def test_sw_multi_kernel_matches_plain(cuda_device, nq, lq, lt, b, offsets):
+@pytest.mark.parametrize("nq,lq,lt,b,offsets,shortest", [
+    (1, 32, 40, 8, False, 0.75), (4, 72, 40, 16, True, 0.75),
+    (16, 512, 300, 600, True, 0.75), (1, 2500, 200, 40, True, 0.75),
+    (16, 512, 300, 600, False, 0.125)])        # mixed query lengths
+@pytest.mark.parametrize("form", ["picked", "int32"])
+@pytest.mark.parametrize("lengths", [True, False])
+def test_sw_multi_kernel_matches_plain(cuda_device, nq, lq, lt, b, offsets,
+                                       shortest, form, lengths):
     """The kernel against both oracles: its plain version (E from the
     post-F H, as the TPU kernel) and the port's dp.sw_scan (E from the
-    pre-F H), the latter on the card."""
+    pre-F H), the latter on the card; in the form pick_form chooses and in
+    the int32 form (one entry raised so that it is chosen), with the real
+    lengths (q_lens, t_lens, prof_max and the longest window) and
+    without."""
     prof_flat, targets, qsel, qoff = make_case(lq, nq, lq, lt, b, offsets)
+    q_lens, t_lens = cut_to_lengths(prof_flat, targets, lq + b, shortest)
+    if form == "int32":
+        prof_flat[0, 0] = 40_000
     args = [torch.from_numpy(prof_flat),
             torch.from_numpy(np.ascontiguousarray(targets.T.astype(np.int8))),
             torch.from_numpy(qsel), torch.from_numpy(qoff)]
-    want = tsw.sw_multi_plain(*args, go=11, ge=1)
-    before = tsw.sw_multi.launches
-    got = tsw.sw_multi(*[a.to(cuda_device) for a in args], go=11, ge=1)
+    ends = q_lens[qsel] if lengths else np.full(b, lq)
+    longest = int(np.maximum(ends - qoff, 0).max())
+    kw = dict(go=11, ge=1)
+    if lengths:
+        kw.update(q_lens=torch.from_numpy(q_lens),
+                  t_lens=torch.from_numpy(t_lens),
+                  prof_max=int(prof_flat.max()), max_window=longest)
+    want = tsw.sw_multi_plain(*args, **kw)
+    expect = tsw.pick_form(longest, int(prof_flat.max()), 11, 1)
+    assert (expect == "int32") == (form == "int32")
+    before = (tsw.sw_multi.launches, dict(tsw.sw_multi.form_launches))
+    got = tsw.sw_multi(*[a.to(cuda_device) for a in args],
+                       **{k: v.to(cuda_device) if torch.is_tensor(v) else v
+                          for k, v in kw.items()})
     torch.cuda.synchronize()
-    assert tsw.sw_multi.launches == before + 1
+    assert tsw.sw_multi.launches == before[0] + 1
+    assert tsw.sw_multi.form_launches[expect] == before[1][expect] + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+    assert int(want[0].max()) > 0
     oracle = tdp.sw_scan(
         torch.from_numpy(masked_profiles(prof_flat, qsel, qoff)).to(
             cuda_device), np.arange(b), targets, 11, 1)
