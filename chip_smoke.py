@@ -13,8 +13,11 @@ caught. Phases, each printing lines before the last:
      from CUDA events (median), cells per second over the cells the inputs
      need, and the card's bound for those cells. sw_multi at the align
      stage's shapes, diag_rescore at the prefilter's (2^10 to 2^17
-     candidates, windows of real protein lengths, edge cases), the gapless
-     scan (gapless, gapless_score) and the single-profile SW entry points
+     candidates, windows of real protein lengths, edge cases, a flush's
+     2^17 candidates in 2^21 slots, stale candidates past the valid count,
+     a moved target store, the path's 17,408 candidates in 2^21 slots; each
+     without and with the valid count), the gapless scan (gapless,
+     gapless_score) and the single-profile SW entry points
      (sw_single, sw_offset, sw_score) at the shapes the exhaustive
      prefilter launches (one profile, Lq 128 to 4,096, Lt buckets 256 to
      2,048, 1,024 to 16,384 lanes, small and large bias, a case that
@@ -55,9 +58,11 @@ caught. Phases, each printing lines before the last:
      host-oracle route, the hits, sw_multi's launches by form and its
      computed cells against those needed; the first 32 queries' lines equal
      a run with the CPU requested; then the prefilter step once more under
-     torch.profiler. (Phase 4's prefilter runs also show that a flush is
-     dispatched with no synchronisation: PyTorch's sync debug mode raises
-     on one);
+     torch.profiler, with diag_rescore's launches and device time from the
+     trace and, recorded in that run, their slots, valid counts and the
+     distribution of their window lengths. (Phase 4's prefilter runs also
+     show that a flush is dispatched with no synchronisation: PyTorch's
+     sync debug mode raises on one);
   7. real size, the exhaustive prefilter: `ungappedprefilter` of the 1,000
      queries against the same targets (--max-seqs 300), counts set to 0
      just before and read just after: wall, queries/s, cells/s end to end,
@@ -161,6 +166,28 @@ def time_ms(fn, reps):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps, sleep_cycles=2_000_000):
+    """Median time of fn's work on the card: a spin of `sleep_cycles` (about
+    1 ms) holds the card busy while the host enqueues the events and fn, so
+    that the events time the card's work and not the host's enqueueing (a
+    launch whose wrapper takes longer on the host than its kernel on the
+    card would otherwise be timed at its wrapper's speed)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
         a.record()
         fn()
         b.record()
@@ -631,14 +658,18 @@ def rescore_store(rng, n_t=N_TARGETS, n_q=128):
                 corr=corr, submat=m, q_len=q_len, origin=origin)
 
 
-def rescore_case(rng, st, n_cand, slots=None, edge=False, negative=False):
+def rescore_case(rng, st, n_cand, slots=None, edge=False, negative=False,
+                 stale=0, shift=0):
     """Candidates as the prefilter's candidate stage leaves them: n_cand
     valid ones at the front of `slots` slots, the rest invalid with qid and
     id I32_MAX. Random diagonals inside the pair's range; for the queries
     cut from a target, a share of candidates on the true diagonal (scores
     past 255). `edge` adds the extremes of the 16-bit diagonal, windows of
     0 and 1 cells and invalid slots in between; `negative` scores every
-    cell below 0. Returns the wrapper's arguments (numpy) and the cells."""
+    cell below 0; `stale` of the slots past n_cand hold candidates with
+    cvalid True, as a mask a count overrides; `shift` moves the target
+    store by that many bytes (every t_off with it). Returns the wrapper's
+    arguments (numpy) and the cells of the valid slots before n_cand."""
     slots = slots or n_cand
     n_q, n_t = len(st["q_len"]), len(st["t_len"])
     cqid = rng.integers(0, n_q, size=n_cand).astype(np.int64)
@@ -667,68 +698,140 @@ def rescore_case(rng, st, n_cand, slots=None, edge=False, negative=False):
     cid = np.where(valid, cid, 2147483647)
     submat = -1 - np.abs(st["submat"]) if negative else st["submat"]
     corr = -np.abs(st["corr"]) if negative else st["corr"]
-    args = (full(cqid, 2147483647, np.int32), full(cid, 2147483647, np.int32),
+    args = [full(cqid, 2147483647, np.int32), full(cid, 2147483647, np.int32),
             full(d & 0xFFFF, 0, np.int32), full(valid, False, bool),
             st["t_cat"], st["t_off"], st["t_len"], st["q_pad"], corr,
-            np.ascontiguousarray(submat), st["q_len"])
+            np.ascontiguousarray(submat), st["q_len"]]
+    if stale:
+        sl = slice(n_cand, n_cand + stale)
+        args[0][sl] = rng.integers(0, n_q, size=stale)
+        args[1][sl] = rng.integers(0, n_t, size=stale)
+        args[3][sl] = True
+    if shift:
+        args[4] = np.concatenate([np.zeros(shift, np.int8), args[4]])
+        args[5] = args[5] + shift
     return args, cells
 
 
-def rescore_bound_ms(args, cells):
+def rescore_bound_ms(args, cells, n_valid=None):
     """Least time of one diag_rescore launch: RESCORE_OPS_PER_CELL int32
-    operations for each of the `cells` its windows hold, or its bytes (each
-    input byte once: the target bytes the windows touch, the query letters
-    and corrections, the matrix, 13 B in and 4 B out per slot and 12 B of
-    target table per candidate), whichever takes longer."""
+    operations for each of the `cells` its windows hold, or the bytes it
+    must move, whichever takes longer. The bytes, each once: the target
+    bytes the windows touch, the query letters and corrections, the
+    matrix, 12 B of target table per candidate, and per slot what the call
+    needs of it: a candidate's slot (cvalid True, and before the count
+    n_valid where one is given) 13 B in and 4 B out, any other slot before
+    the count its cvalid and its output (5 B), a slot past the count its
+    output (4 B). Returns (ms, bound_by, ms_all_slots): ms_all_slots is
+    the bound as the first version of this phase counted it, 17 B for every
+    slot and 12 B for every slot with cvalid True, kept beside the other so
+    that shares of it stay comparable across versions of the kernel."""
     slots = len(args[0])
-    n_valid = int(args[3].sum())
+    n_t = len(args[6])
+    shared = (min(cells, args[4].nbytes) + args[7].nbytes + args[8].nbytes
+              + args[9].nbytes + args[10].nbytes)
+    upto = slots if n_valid is None else n_valid
+    cand = int(args[3][:upto].sum())
+    per_slot = cand * 17 + (upto - cand) * 5 + (slots - upto) * 4
     ops_s = cells * RESCORE_OPS_PER_CELL / INT32_OPS_PER_S
-    nbytes = (min(cells, args[4].nbytes) + args[7].nbytes + args[8].nbytes
-              + args[9].nbytes + args[10].nbytes + slots * (13 + 4)
-              + min(n_valid, len(args[6])) * 12)
-    bytes_s = nbytes / HBM_BYTES_PER_S
-    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
-                                       else "bytes")
+    bytes_s = (shared + per_slot + min(cand, n_t) * 12) / HBM_BYTES_PER_S
+    all_s = (shared + slots * 17 + min(int(args[3].sum()), n_t) * 12
+             ) / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes",
+            max(ops_s, all_s) * 1e3)
 
 
-def phase_rescore_kernel(rng):
+RESCORE_CASES = [
+    dict(n_cand=1 << 10), dict(n_cand=1 << 13), dict(n_cand=1 << 15),
+    dict(n_cand=1 << 17),
+    dict(n_cand=1 << 17, slots=1 << 21),          # a flush's own shape
+    dict(n_cand=1 << 12, edge=True),
+    dict(n_cand=1 << 12, negative=True),
+    # cases of the valid count: stale candidates past it, a moved store
+    dict(n_cand=1 << 15, slots=1 << 17, stale=1 << 15),
+    dict(n_cand=1 << 15, shift=7),
+    # the shape easy-search's flushes launch (about 17,300 candidates in
+    # 2^21 slots, phase 6's record)
+    dict(n_cand=17_408, slots=1 << 21)]
+
+
+def valid_cells(args, upto=None):
+    """Cells of the windows of the slots with cvalid True (before `upto`),
+    from the wrapper's numpy arguments."""
+    cqid, cid, cdiag, cvalid = args[:4]
+    t_len, q_len = args[6], args[10]
+    sel = np.nonzero(cvalid[:upto])[0]
+    d = (cdiag[sel].astype(np.int64) + 0x8000) % 0x10000 - 0x8000
+    n = np.minimum(t_len[cid[sel]].astype(np.int64) - np.maximum(-d, 0),
+                   q_len[cqid[sel]].astype(np.int64) - np.maximum(d, 0))
+    return int(np.maximum(n, 0).sum())
+
+
+def rescore_case_name(st, c, counted):
+    return (f"candidates={c['n_cand']} slots={c.get('slots', c['n_cand'])}"
+            f" targets={len(st['t_len'])} queries={len(st['q_len'])}"
+            + (" edge-cases" if c.get("edge") else "")
+            + (" all-negative" if c.get("negative") else "")
+            + (f" stale={c['stale']}" if c.get("stale") else "")
+            + (f" t_cat-shift={c['shift']}" if c.get("shift") else "")
+            + (" n_valid" if counted else ""))
+
+
+def phase_rescore_kernel(rng, counts=(False, True)):
+    """diag_rescore against its plain version at the prefilter's shapes,
+    each case without and with the valid count (the main path passes it;
+    `counts=(False,)` runs a package whose wrapper takes none, as
+    rescore_ab.py does with an older checkout). `ms` is the
+    kernel's time on the card (device_ms), `call_ms` the call's as earlier
+    versions of this phase timed it (time_ms: the wrapper's host time shows
+    where it is longer than the kernel). The first seven cases draw their
+    data as the first version of this phase did, so that an older checkout
+    and this one see the same inputs from one seed."""
     import torch
     from mmseqs2_tpu_torch.ops import rescore
     st = rescore_store(rng)
-    cases = [dict(n_cand=1 << 10), dict(n_cand=1 << 13), dict(n_cand=1 << 15),
-             dict(n_cand=1 << 17),
-             dict(n_cand=1 << 17, slots=1 << 21),     # a flush's own shape
-             dict(n_cand=1 << 12, edge=True),
-             dict(n_cand=1 << 12, negative=True)]
     rows = []
-    for c in cases:
+    for c in RESCORE_CASES:
         np_args, cells = rescore_case(rng, st, **c)
         args = [torch.from_numpy(a).cuda() for a in np_args]
-        got = rescore.diag_rescore(*args)
-        want = rescore.diag_rescore_plain(*args)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        equal = torch.equal(got, want)
-        if c.get("negative"):
-            equal = equal and bool((got == 0).all())
-        ms = time_ms(lambda: rescore.diag_rescore(*args), 5)
-        plain_ms = time_ms(lambda: rescore.diag_rescore_plain(*args), 2)
-        bound, by = rescore_bound_ms(np_args, cells)
-        name = (f"candidates={c['n_cand']} slots={c.get('slots', c['n_cand'])}"
-                f" targets={len(st['t_len'])} queries={len(st['q_len'])}"
-                + (" edge-cases" if c.get("edge") else "")
-                + (" all-negative" if c.get("negative") else ""))
-        row = dict(case=name, equal=equal, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, cells=cells,
-                   gcells_per_s=cells / ms / 1e6, bound_ms=bound,
-                   bound_by=by, bound_share=bound / ms,
-                   max_score=int(got.max()),
-                   saturated=int((got > 255).sum()))
-        log("rescore-case " + json.dumps(row))
-        if not equal:
-            raise AssertionError(f"diag_rescore differs from its plain "
-                                 f"version: {name} (max abs err {err})")
-        rows.append((c, row))
+        n_valid = torch.tensor(c["n_cand"], dtype=torch.int32, device="cuda")
+        for counted in counts:
+            kw = dict(n_valid=n_valid) if counted else {}
+            got = rescore.diag_rescore(*args, **kw)
+            want = rescore.diag_rescore_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            equal = torch.equal(got, want)
+            if c.get("negative"):
+                equal = equal and bool((got == 0).all())
+            if counted and c.get("stale"):
+                equal = equal and not bool(got[c["n_cand"]:].any())
+            ms = device_ms(lambda: rescore.diag_rescore(*args, **kw), 9)
+            call_ms = time_ms(lambda: rescore.diag_rescore(*args, **kw), 5)
+            plain_ms = time_ms(lambda: rescore.diag_rescore_plain(*args, **kw),
+                               2)
+            # the cells this run needs: without the count the stale slots
+            # are candidates too
+            run_cells = cells
+            if c.get("stale") and not counted:
+                run_cells = valid_cells(np_args)
+            bound, by, bound_all = rescore_bound_ms(
+                np_args, run_cells, c["n_cand"] if counted else None)
+            name = rescore_case_name(st, c, counted)
+            row = dict(case=name, equal=equal, max_abs_err=err, ms=ms,
+                       call_ms=call_ms, plain_ms=plain_ms, cells=run_cells,
+                       gcells_per_s=run_cells / ms / 1e6, bound_ms=bound,
+                       bound_by=by, bound_share=bound / ms,
+                       bound_ms_all_slots=bound_all,
+                       bound_share_all_slots=bound_all / ms,
+                       max_score=int(got.max()),
+                       saturated=int((got > 255).sum()))
+            log("rescore-case " + json.dumps(row))
+            if not equal:
+                raise AssertionError(f"diag_rescore differs from its plain "
+                                     f"version: {name} (max abs err {err})")
+            rows.append((dict(c, counted=counted), row))
     return rows
 
 
@@ -1205,12 +1308,13 @@ def device_spans_s(events):
     return busy / 1e6, by_name
 
 
-def phase_trace(label, args, out, reference, untraced_wall):
+def phase_trace(label, args, out, reference, untraced_wall, focus=None):
     """One command of a real-size phase once more, under torch.profiler
     (CPU and CUDA activities), apart from the untraced run whose wall is
     the metric: the card's busy and idle shares of the traced wall, device
-    time by kernel, and what tracing costs. The traced run must give the
-    entries of `reference`."""
+    time by kernel (and, for `focus`, the count and seconds of the kernels
+    whose names hold it, with their share of the device time), and what
+    tracing costs. The traced run must give the entries of `reference`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1236,6 +1340,12 @@ def phase_trace(label, args, out, reference, untraced_wall):
         busy_share=busy / wall, idle_share=1 - busy / wall,
         device_s_by_name=[dict(name=n[:100], count=c, s=s)
                           for n, (c, s) in top])
+    if focus:
+        hit = [v for n, v in by_name.items() if focus in n]
+        f_s = sum(v[1] for v in hit)
+        res["focus"] = dict(name=focus, count=sum(v[0] for v in hit), s=f_s,
+                            share_of_device_s=f_s / sum(
+                                v[1] for v in by_name.values()))
     log(f"trace {label} " + json.dumps(res))
     return res
 
@@ -1325,12 +1435,57 @@ def phase_easy_search(n_queries=1_000, n_check=32):
         raise AssertionError(f"card and CPU easy-search differ for queries "
                              f"{bad[:10]}")
 
-    trace = phase_trace(
-        "prefilter", ["prefilter", tmp / "query", tmp / "target",
-                      WORK / "pref_traced", "-s", "5.7"],
-        WORK / "pref_traced", tmp / "search_tmp" / "pref_0",
-        steps["prefilter"])
+    # the traced rerun also records each flush's rescore (slots, valid
+    # candidates, window lengths), work that the untraced run whose wall is
+    # the metric does not do
+    prefilter_kmer.reset_stats()
+    rescore.diag_rescore.launches = 0
+    prefilter_kmer.RECORD_RESCORE = True
+    try:
+        trace = phase_trace(
+            "prefilter", ["prefilter", tmp / "query", tmp / "target",
+                          WORK / "pref_traced", "-s", "5.7"],
+            WORK / "pref_traced", tmp / "search_tmp" / "pref_0",
+            steps["prefilter"], focus="rescore_kernel")
+    finally:
+        prefilter_kmer.RECORD_RESCORE = False
+    trace["diag_rescore"] = rescore_record(
+        prefilter_kmer.STATS["rescore"], rescore.diag_rescore.launches,
+        trace["focus"])
+    log("rescore-record " + json.dumps(trace["diag_rescore"]))
     return res, trace
+
+
+def rescore_record(log_, launches, focus):
+    """The traced prefilter's diag_rescore launches: the kernel's device
+    time from the trace (sum and per launch), slots and valid candidates
+    per launch as the prefilter recorded them, and the distribution of
+    window lengths (cells per valid candidate) from the summed
+    histogram."""
+    from mmseqs2_tpu_torch.prefilter.device import WINDOW_BIN
+    if not len(log_) == launches == focus["count"] > 0:
+        raise AssertionError(f"{launches} diag_rescore launches, "
+                             f"{len(log_)} recorded, {focus['count']} "
+                             f"traced")
+    hist = sum(r["windows"] for r in log_)
+    n = int(hist.sum())
+    cum = np.cumsum(hist)
+    # bin b holds windows of [b, b + 1) * WINDOW_BIN cells: a quantile is
+    # given as its bin's upper end
+    def quantile(p):
+        return int(np.searchsorted(cum, p * n) + 1) * WINDOW_BIN
+    mids = (np.arange(len(hist)) + 0.5) * WINDOW_BIN
+    return dict(
+        launches=launches, trace_ms_sum=focus["s"] * 1e3,
+        trace_ms_per_launch=focus["s"] * 1e3 / launches,
+        slots=[r["slots"] for r in log_], valid=[r["valid"] for r in log_],
+        windows=dict(
+            valid_candidates=n, bin_cells=WINDOW_BIN,
+            mean_cells_approx=float((hist * mids).sum() / max(n, 1)),
+            quantiles_le={f"p{int(p * 100)}": quantile(p) for p in
+                          (0.1, 0.25, 0.5, 0.75, 0.9, 0.99)},
+            share_le={str(c): float(cum[c // WINDOW_BIN - 1] / max(n, 1))
+                      for c in (32, 64, 128, 256, 512)}))
 
 
 def pref_hits(data):
@@ -1585,7 +1740,7 @@ def main():
     real = phase_real_size(rng)
 
     # 6. the main path at real size: easy-search, then a traced prefilter
-    easy, _ = phase_easy_search()
+    easy, easy_trace = phase_easy_search()
 
     # 7. this slice at real size: the exhaustive prefilter
     exh = phase_exhaustive()
@@ -1600,7 +1755,11 @@ def main():
                and not c.get("negative") and not c.get("big")
                and "variant" not in c)
     rrep = next(r for c, r in rrows if c["n_cand"] == 1 << 17
-                and "slots" not in c)
+                and "slots" not in c and not c["counted"])
+    rflush = next(r for c, r in rrows if c["n_cand"] == 1 << 17
+                  and c.get("slots") == 1 << 21 and c["counted"])
+    rpath = next(r for c, r in rrows if c["n_cand"] == 17_408
+                 and c["counted"])
     kern = [dict(
         name="sw_multi", route="cuda",
         source="mmseqs2_tpu_torch/csrc/sw.cu",
@@ -1622,7 +1781,13 @@ def main():
         ms=rrep["ms"], plain_ms=rrep["plain_ms"], bound_ms=rrep["bound_ms"],
         bound_by=rrep["bound_by"], library_ms=None,
         equal=all(r["equal"] for _, r in rrows),
-        at=rrep["case"])]
+        at=rrep["case"], call_ms=rrep["call_ms"],
+        flush_shape_ms=rflush["ms"], flush_shape_bound_ms=rflush["bound_ms"],
+        flush_shape_at=rflush["case"], path_shape_ms=rpath["ms"],
+        path_shape_bound_ms=rpath["bound_ms"], path_shape_at=rpath["case"],
+        path_trace_launches=easy_trace["diag_rescore"]["launches"],
+        path_trace_ms_per_launch=easy_trace["diag_rescore"][
+            "trace_ms_per_launch"])]
     replaces = dict(gapless="mmseqs2_tpu/ops/pallas_sw.py:396",
                     gapless_score="mmseqs2_tpu/ops/pallas_sw.py:503",
                     sw_single="mmseqs2_tpu/ops/pallas_sw.py:396",

@@ -43,15 +43,19 @@ INT_MAX = 2147483647
 # Counters of the prefilter stage, summed over every run until reset_stats():
 # host seconds of the index build, of stage-0 (summed over the pool's
 # workers), of dispatching flushes, of waiting for them and of writing hits;
-# flushes, queries, queries matched again by the host oracle, hits written.
+# flushes, queries, queries matched again by the host oracle, hits written;
+# with RECORD_RESCORE set, one dict per flush's diag_rescore: its slots,
+# valid candidates and the histogram of its windows' lengths
+# (prefilter/device.py: WINDOW_BIN cells a bin).
 STATS = {}
+RECORD_RESCORE = False
 
 
 def reset_stats():
     STATS.clear()
     STATS.update(index_s=0.0, prep_s=0.0, dispatch_s=0.0, wait_s=0.0,
                  write_s=0.0, flushes=0, queries=0, host_oracle_queries=0,
-                 hits=0)
+                 hits=0, rescore=[])
 
 
 reset_stats()
@@ -213,6 +217,7 @@ def prefilter_kmer(par, command):
         par.comp_bias_corr, par.comp_bias_corr_scale,
         par.min_ungapped_score, generator,
         take_only_best_kmer=take_only_best, host_fallback=matcher)
+    dev.record_rescore = RECORD_RESCORE
     return _run_device(par, qreader, treader, qdb, dev, same_db, out_path)
 
 
@@ -316,6 +321,7 @@ def _run_device(par, qreader, treader, qdb, dev, same_db, out_path):
     STATS["queries"] += qreader.size
     STATS["host_oracle_queries"] += dev.host_oracle_queries - oracle0
     STATS["hits"] += sum(reslens)
+    STATS["rescore"] += dev.rescore_log
     _print_statistics(None, reslens, qreader.size, par.max_seqs)
     return 0
 

@@ -2,17 +2,18 @@
 
 Port of the k-mer prefilter's rescorer (mmseqs2_tpu/prefilter:
 pallas_rescore.py:_kernel, device_stages.make_rescore and
-make_rescore_from_letters; reference UngappedAlignment.cpp): for every valid
-candidate (query qid, target id, diagonal) the score of the best ungapped
-segment on that diagonal,
+make_rescore_from_letters, driven by _chunked_rescore; reference
+UngappedAlignment.cpp): for every valid candidate (query qid, target id,
+diagonal) the score of the best ungapped segment on that diagonal,
 
     d  = the low 16 bits of diag read as signed; qs = max(d, 0); ts = max(-d, 0)
     n  = max(min(t_len[id] - ts, q_len[qid] - qs), 0)
     s_l = submat[q[qid, qs + l], t_cat[t_off[id] + ts + l]] + corr[qid, qs + l]
     out = max(0, max_l (c_l - min(0, min_{k<l} c_k))),  c = cumsum(s)
 
-and 0 for an invalid candidate or an empty window. The score is exact
-(int32); the caller takes min(score, 255) where the reference caps.
+and 0 for an invalid candidate, a slot at or past the valid count, or an
+empty window. The score is exact (int32); the caller takes min(score, 255)
+where the reference caps.
 
   diag_rescore        the wrapper: CUDA tensors go to the hand-written kernel
                       (csrc/rescore.cu, built at first use), CPU tensors to the
@@ -20,11 +21,28 @@ and 0 for an invalid candidate or an empty window. The score is exact
                       `diag_rescore.launches` counts kernel launches.
   diag_rescore_plain  the same function in plain PyTorch (gather, cumsum,
                       cummin), on any device.
+  window_cells        the cells of each slot's window (-1: no candidate).
 
 Tensors: cqid, cid, cdiag (C,) int32 and cvalid (C,) bool; t_cat (R,) int8
 target letters, t_off (T,) int64 and t_len (T,) int32; q_pad (B, Lq) uint8
 query letters and corr (B, Lq) int8 bias correction; submat (A, A) int32 with
 A <= 32; q_len (B,) int32. Slots with cvalid False may hold any qid and id.
+
+The valid count, `n_valid` (optional): a 0-dim or (1,) int32 tensor on the
+candidates' device holding the count of front-compacted valid slots, as the
+reference's n_valid. Slots at and past it give 0 whatever cvalid says; slots
+before it obey cvalid. The kernel reads it on the card, so a flush that
+passes its device-side candidate count never waits for it: the kernel's
+grid is sized to the card, its warps take the slots below the count by a
+grid-stride loop, and the slots past it are zero-filled.
+
+The kernel (csrc/rescore.cu's header has the whole design): a group of 8
+lanes takes a candidate, each lane scores 16 consecutive cells of the
+window into a summary (sum, largest prefix sum, Kadane state and best), and
+the group combines the summaries with one exclusive sum-scan and one
+min-scan per 128 cells; the target bytes, query letters and corrections
+come in as aligned words. All int32: the bound is
+set by bytes, not operations, and a window's running sum can pass int16.
 """
 
 import ctypes
@@ -42,7 +60,7 @@ _SPEC = (("cqid", torch.int32, 1), ("cid", torch.int32, 1),
          ("q_len", torch.int32, 1))
 
 
-def _check(args):
+def _check(args, n_valid=None):
     dev = args[0].device
     for (name, dtype, dim), t in zip(_SPEC, args):
         if t.device != dev:
@@ -68,24 +86,57 @@ def _check(args):
             1 <= submat.shape[0] <= MAX_ALPHA:
         raise ValueError(f"submat must be (A, A) with A <= {MAX_ALPHA}, got "
                          f"{tuple(submat.shape)}")
+    if n_valid is None:
+        return
+    if not isinstance(n_valid, torch.Tensor):
+        raise TypeError("n_valid must be a tensor on the candidates' device")
+    if n_valid.device != dev:
+        raise ValueError(f"n_valid is on {n_valid.device}, cqid on {dev}")
+    if n_valid.dtype != torch.int32:
+        raise TypeError(f"n_valid must be {torch.int32}, got "
+                        f"{n_valid.dtype}")
+    if n_valid.numel() != 1 or n_valid.dim() > 1:
+        raise ValueError(f"n_valid must be 0-dim or (1,), got "
+                         f"{tuple(n_valid.shape)}")
+
+
+def _window(qid, tid, cdiag, t_len, q_len):
+    """(qs, ts, n) int64 of each candidate's window."""
+    d = ((cdiag.long() + 0x8000) & 0xFFFF) - 0x8000          # signed 16 bits
+    qs = d.clamp(min=0)
+    ts = (-d).clamp(min=0)
+    n = torch.minimum(t_len[tid].long() - ts,
+                      q_len[qid].long() - qs).clamp(min=0)
+    return qs, ts, n
+
+
+def window_cells(cqid, cid, cdiag, cvalid, t_len, q_len, n_valid=None):
+    """(C,) int64: the cells of each slot's window, -1 for a slot that is
+    no candidate (invalid, or at or past n_valid). Reads nothing back to the
+    host."""
+    if n_valid is not None:
+        cvalid = cvalid & (torch.arange(cqid.shape[0], device=cqid.device)
+                           < n_valid.reshape(()))
+    qid = torch.where(cvalid, cqid, 0).long()
+    tid = torch.where(cvalid, cid, 0).long()
+    return torch.where(cvalid, _window(qid, tid, cdiag, t_len, q_len)[2], -1)
 
 
 def diag_rescore_plain(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad,
-                       corr, submat, q_len):
+                       corr, submat, q_len, n_valid=None):
     """Plain version of diag_rescore: valid candidates are gathered in
     blocks of PLAIN_ROWS, each as wide as its longest window."""
     dev = cqid.device
     out = torch.zeros(cqid.shape[0], dtype=torch.int32, device=dev)
+    if n_valid is not None:
+        cvalid = cvalid & (torch.arange(cqid.shape[0], device=dev)
+                           < n_valid.reshape(()))
     sel = torch.nonzero(cvalid).flatten()
     if sel.numel() == 0:
         return out
     qid = cqid[sel].long()
     tid = cid[sel].long()
-    d = ((cdiag[sel].long() + 0x8000) & 0xFFFF) - 0x8000     # signed 16 bits
-    qs = d.clamp(min=0)
-    ts = (-d).clamp(min=0)
-    n = torch.minimum(t_len[tid].long() - ts,
-                      q_len[qid].long() - qs).clamp(min=0)
+    qs, ts, n = _window(qid, tid, cdiag[sel], t_len, q_len)
     base = t_off[tid] + ts
     lq = q_pad.shape[1]
     alpha = submat.shape[1]
@@ -116,7 +167,7 @@ def diag_rescore_plain(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad,
     return out
 
 
-def _launch_kernel(args):
+def _launch_kernel(args, n_valid):
     cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad, corr, submat, \
         q_len = args
     dev = cqid.device
@@ -129,10 +180,12 @@ def _launch_kernel(args):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.diag_rescore_launch(
             cqid.data_ptr(), cid.data_ptr(), cdiag.data_ptr(),
-            cvalid.data_ptr(), n, t_cat.data_ptr(), t_off.data_ptr(),
-            t_len.data_ptr(), q_pad.data_ptr(), corr.data_ptr(),
-            q_pad.shape[1], q_len.data_ptr(), submat.data_ptr(),
-            submat.shape[0], out.data_ptr(), stream)
+            cvalid.data_ptr(), None if n_valid is None else
+            n_valid.data_ptr(), n, t_cat.data_ptr(), t_cat.numel(),
+            t_off.data_ptr(), t_len.data_ptr(), q_pad.data_ptr(),
+            corr.data_ptr(), q_pad.shape[0], q_pad.shape[1],
+            q_len.data_ptr(), submat.data_ptr(), submat.shape[0],
+            out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"diag_rescore kernel launch failed: CUDA error "
                            f"{err}")
@@ -141,18 +194,19 @@ def _launch_kernel(args):
 
 
 def diag_rescore(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad, corr,
-                 submat, q_len):
+                 submat, q_len, n_valid=None):
     """Exact best ungapped diagonal score per candidate, (C,) int32 on the
-    inputs' device (see the module docstring for the tensors)."""
+    inputs' device (see the module docstring for the tensors and the valid
+    count)."""
     args = (cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad, corr,
             submat, q_len)
-    _check(args)
+    _check(args, n_valid)
     dev = cqid.device
     if dev.type == "cpu":
-        return diag_rescore_plain(*args)
+        return diag_rescore_plain(*args, n_valid)
     if dev.type != "cuda":
         raise ValueError(f"diag_rescore: no kernel for device {dev}")
-    return _launch_kernel(args)
+    return _launch_kernel(args, n_valid)
 
 
 diag_rescore.launches = 0
@@ -166,8 +220,9 @@ def _lib():
         from .kernels import load
         lib = load("rescore")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.diag_rescore_launch.argtypes = [p, p, p, p, i, p, p, p, p, p, i,
-                                            p, p, i, p, p]
+        ll = ctypes.c_longlong
+        lib.diag_rescore_launch.argtypes = [p, p, p, p, p, i, p, ll, p, p, p,
+                                            p, i, i, p, p, i, p, p]
         lib.diag_rescore_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB

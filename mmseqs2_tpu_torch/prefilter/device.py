@@ -18,9 +18,13 @@ operations over buffers of the flush's own size:
                                 first entry with u8 diag 0 counts)
   3. compaction               - cumsum + scatter
   4. ungapped diagonal rescore- the hand-written kernel of ops/rescore.py,
-                                exact scores; the prefilter score is
-                                min(exact, 255) and kept hits that saturated
-                                take the exact value, with no second pass
+                                exact scores, bounded by the device-side
+                                candidate count as the reference's n_valid
+                                (a grid sized to the card, no block for the
+                                empty slots, nothing read back); the
+                                prefilter score is min(exact, 255) and kept
+                                hits that saturated take the exact value,
+                                with no second pass
   5. keepMaxScoreElementOnly  - scatter max + scatter min tie-break
   6. adaptive score threshold - per-query 256-bin histogram
   7. top-K selection + final (score desc, id asc) ordering
@@ -44,7 +48,7 @@ import numpy as np
 import torch
 
 from ..ops.encode import calc_local_aa_bias
-from ..ops.rescore import diag_rescore
+from ..ops.rescore import diag_rescore, window_cells
 from .device_stages import (stage_candidates_pre, stage_finalize,
                             stage_hist, stage_keepmax, stage_select,
                             threshold_from_hist)
@@ -52,22 +56,35 @@ from .kmer_index import extract_kmers
 from .query_matcher import UCHAR_MAX, USHRT_MAX
 
 NOT_PORTED = "is not yet ported (see ROADMAP.md)"
+# the rescore record's histogram of window lengths: bins of WINDOW_BIN
+# cells, the last one open (WINDOW_BIN * (WINDOW_BINS - 1) cells and more)
+WINDOW_BIN = 8
+WINDOW_BINS = 513
 
 
 def device_match_pre(qtid, diag, t_cat, t_off, t_len, q_pad, corr, submat,
                      q_len, identity, *, n_q, max_hits, min_diag_thr, out_sz,
-                     tb):
+                     tb, record=None):
     """Match a host-expanded flush on the device of its tensors.
 
     qtid (H,) i32 `qid << tb | id` and diag (H,) i16 (the u16 diagonal's
     bits) per expansion, in expansion order. Returns (big, small): big
     (5, out_sz) i32 rows qid, id, diagonal, score, valid in final order;
-    small = [n_cand, n_keep, total, truncated per query]."""
+    small = [n_cand, n_keep, total, truncated per query].
+
+    `record` (a dict) receives the rescore's slots and the histogram of
+    its valid windows' lengths on the device; nothing is read back."""
     c_cap = qtid.shape[0]
     cqid, cid, cdiag, cvalid, n_cand, total = stage_candidates_pre(
         qtid, diag, c_cap=c_cap, tb=tb)
     cexact = diag_rescore(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len,
-                          q_pad, corr, submat, q_len)
+                          q_pad, corr, submat, q_len, n_cand)
+    if record is not None:
+        n = window_cells(cqid, cid, cdiag, cvalid, t_len, q_len, n_cand)
+        hist = torch.zeros(WINDOW_BINS, dtype=torch.int64, device=n.device)
+        hist.scatter_add_(0, (n // WINDOW_BIN).clamp(0, WINDOW_BINS - 1),
+                          (n >= 0).long())
+        record.update(slots=c_cap, windows=hist)
     cscore = cexact.clamp(max=UCHAR_MAX)
     is_best = stage_keepmax(cqid, cid, cscore, cvalid, c_cap=c_cap)
     hist = stage_hist(cqid, cscore, is_best, n_q=n_q, c_cap=c_cap)
@@ -116,6 +133,10 @@ class DevicePrefilter:
         self.host_fallback = host_fallback   # QueryMatcher oracle
         self.x_index = seed.alphabet_size - 1
         self.host_oracle_queries = 0
+        # when set: one dict per flush's rescore (slots, valid candidates,
+        # window-length histogram), filled by match_batch_wait
+        self.record_rescore = False
+        self.rescore_log = []
 
         seqs = index_table.masked_seqs
         if hasattr(seqs, "cat"):          # index_io.CatSeqs packed layout
@@ -312,15 +333,18 @@ class DevicePrefilter:
         d_qtid, d_diag, d_q, d_corr, d_meta = (
             t.to(dev, non_blocking=True)
             for t in (h_qtid, h_diag, h_q, h_corr, h_meta))
+        record = {} if self.record_rescore else None
         big, small = device_match_pre(
             d_qtid, d_diag, self.d_t_cat, self.d_t_off, self.d_t_lens,
             d_q, d_corr, self.d_submat, d_meta[0], d_meta[1],
             n_q=B, max_hits=self.max_hits, min_diag_thr=self.min_diag_thr,
-            out_sz=max(min(total, B * self.max_hits), 1), tb=tb)
+            out_sz=max(min(total, B * self.max_hits), 1), tb=tb,
+            record=record)
         # the pinned buffers stay referenced until the flush is fetched
         return {"queries": queries, "identity_ids": identity_ids,
                 "results": results, "big": big, "small": small,
-                "host": (h_qtid, h_diag, h_q, h_corr, h_meta)}
+                "host": (h_qtid, h_diag, h_q, h_corr, h_meta),
+                "record": record}
 
     def match_batch_wait(self, pend):
         """Fetch + post-process a match_batch_async dispatch."""
@@ -332,6 +356,11 @@ class DevicePrefilter:
         B = len(queries)
         big = pend["big"].cpu().numpy()
         small = pend["small"].cpu().numpy()
+        rec = pend["record"]
+        if rec is not None:
+            self.rescore_log.append(dict(
+                slots=rec["slots"], valid=int(small[0]),
+                windows=rec["windows"].cpu().numpy()))
         oq, oid, odiag, ofs, oval = big
         truncated = small[3:3 + B].astype(bool)
         sel = np.nonzero(oval.astype(bool) & (oq < B))[0]
