@@ -43,6 +43,14 @@ caught. Phases, each printing lines before the last:
      score-only kernels (gapless_score, sw_score); `search --prefilter-mode
      1` runs
      and its first queries' entries equal a run with the CPU requested;
+     clustering: `clust` (3 modes), `rescorediagonal` (3 modes),
+     `kmermatcher` (v1 and three v2 flag sets), `linclust` and `cluster`
+     with --linclust-version 1 equal their goldens (clu*, resc*, kmpref,
+     km_*, linclu, casclu), and `prefilter` of the toy set against a
+     `createindex` index equals the run without one. Phase 8's CPU side
+     runs in a subprocess during this phase, which is correctness only:
+     none of its seconds is a metric, and the phase ends by waiting for
+     the subprocess, so that nothing measured runs beside it;
   5. real size, align only: `createdb` + `align -a` on N_TARGETS
      SwissProt-like targets and 1,000 queries with 300 synthetic prefilter
      candidates each (300,000 pairs), data made from a seed; launch counts
@@ -60,9 +68,13 @@ caught. Phases, each printing lines before the last:
      a run with the CPU requested; then the prefilter step once more under
      torch.profiler, with diag_rescore's launches and device time from the
      trace and, recorded in that run, their slots, valid counts and the
-     distribution of their window lengths. (Phase 4's prefilter runs also
-     show that a flush is dispatched with no synchronisation: PyTorch's
-     sync debug mode raises on one);
+     distribution of their window lengths. Beside the main path, not in
+     its place: `createindex -s 5.7` of the target DB and easy-search
+     against it, as bench.py does (the index build's seconds beside the
+     wall, hit lines equal to the run without the index), and its
+     prefilter step once more under torch.profiler. (Phase 4's prefilter
+     runs also show that a flush is dispatched with no synchronisation:
+     PyTorch's sync debug mode raises on one);
   7. real size, the exhaustive prefilter: `ungappedprefilter` of the 1,000
      queries against the same targets (--max-seqs 300), counts set to 0
      just before and read just after: wall, queries/s, cells/s end to end,
@@ -79,7 +91,23 @@ caught. Phases, each printing lines before the last:
      (wall, kernels, launches by form, cells needed and computed; once
      more under torch.profiler), no gapped hit below its gapless score,
      and a sub-DB run equal on the card and the CPU;
-  8. one JSON line listing every kernel;
+  8. clustering at real size, on phase 5's targets: `easy-linclust` of all
+     of them with the defaults, and `easy-cluster` of the first 10,000 (a
+     cut for time) at MMseqs2's README parameters (--min-seq-id 0.5 -c 0.8
+     --cov-mode 1), every kernel's count set to 0 just before each and read
+     just after: wall, sequences/s, clusters, the wall by step,
+     align2clust's gapped calls with their sw_multi launches (by form) and
+     read-backs, and each round's prefilter route (card or host), index
+     seconds and launches; each output a full assignment; then both
+     commands on a check set made from its own generator, 2,000 sequences
+     of the same recipe and 200 planted near-duplicates of them (2%
+     substitutions, two thirds of them with one indel of 1-3 letters, so
+     that align2clust accepts pairs through its gapped fallback and
+     through its ungapped rescore, both checked), whose three files equal
+     those of phase 4's CPU subprocess; then the card's easy-cluster of the
+     check set once more under torch.profiler;
+  9. one JSON line listing every kernel, with its launches on the
+     clustering path beside those of the path that launches it;
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA card or outside a checkout of the repository.
 """
@@ -142,6 +170,16 @@ GAPLESS_OPS_PER_CELL = {("gapless", "int32"): 3,
                         ("gapless_score", "int32"): 2,
                         ("gapless", "int16"): 0.75,
                         ("gapless_score", "int16"): 0.75}
+
+
+_PHASE_T0 = [time.perf_counter()]
+
+
+def phase_done(n):
+    """Log the seconds phase n took (since the previous phase ended)."""
+    now = time.perf_counter()
+    log(f"phase {n}: {now - _PHASE_T0[0]:.2f} s")
+    _PHASE_T0[0] = now
 
 
 def log(msg):
@@ -220,11 +258,12 @@ PBACK = PBACK / PBACK.sum()
 
 
 def sw_case(rng, submat, nq, lq, lt, lanes, reverse, negative=False,
-            big=False):
+            big=False, mut_rate=0.3):
     """Inputs of one sw_multi launch as the align stage builds them: nq
     query profiles of the Lq bucket, lanes targets of the Lt bucket (half of
-    them mutated fragments of their query), pad letter 31. The reverse pass
-    takes the reversed profile (pad rows first) and qoff = lq - 1 - qend.
+    them fragments of their query with mut_rate of their letters mutated),
+    pad letter 31. The reverse pass takes the reversed profile (pad rows
+    first) and qoff = lq - 1 - qend.
     Also returns what the aligner passes with them: each profile's real
     length (the forward pass's q_lens), each lane's window end and target
     length; and the cells the launch needs: per lane, its window rows
@@ -254,7 +293,7 @@ def sw_case(rng, submat, nq, lq, lt, lanes, reverse, negative=False,
             q = qseqs[qsel[b]]
             m = min(len(q), n)
             frag = q[:m].copy()
-            mut = rng.random(m) < 0.3
+            mut = rng.random(m) < mut_rate
             frag[mut] = aa_idx[rng.choice(20, size=int(mut.sum()), p=PBACK)]
             t[:m] = frag[::-1] if reverse else frag
         tb[:n, b] = t
@@ -294,13 +333,28 @@ def phase_kernels(rng):
         dict(nq=16, lq=1024, lt=512, lanes=4096, reverse=False, go=11, ge=1,
              big=True),
     ]
+    # align2clust's gapped fallback: one pair a call, so NQ 1 and one lane,
+    # forward and reverse, at the aligner's length buckets (a near-duplicate
+    # pair sits in one bucket, or in two neighbours), the target a copy of
+    # its query with 2% of its letters mutated. These draw from their
+    # own generator, so that the later phases' data stay those of the
+    # earlier runs.
+    rng_one = np.random.default_rng(SEED + 9)
+    cases += [dict(nq=1, lq=lq, lt=lt, lanes=1, reverse=rev, go=11, ge=1,
+                   one_lane=True)
+              for lq, lt in ((64, 64), (128, 128), (256, 256), (512, 512),
+                             (1024, 1024), (2048, 2048), (256, 512),
+                             (512, 256))
+              for rev in (False, True)]
     log("kernels vs plain versions: tolerance 0 (integer outputs, exact "
         "equality); ms = median of CUDA-event timings")
     rows = []
     for c in cases:
         pf, tb, qsel, qoff, q_lens, ends, tlen, cells = sw_case(
-            rng, submat, c["nq"], c["lq"], c["lt"], c["lanes"], c["reverse"],
-            c.get("negative", False), c.get("big", False))
+            rng_one if c.get("one_lane") else rng, submat, c["nq"], c["lq"],
+            c["lt"], c["lanes"], c["reverse"],
+            c.get("negative", False), c.get("big", False),
+            0.02 if c.get("one_lane") else 0.3)
         args = [torch.from_numpy(a).cuda() for a in (pf, tb, qsel)]
         qoff_d = torch.from_numpy(qoff).cuda()
         go, ge = c["go"], c["ge"]
@@ -1118,6 +1172,75 @@ def phase_golden_exhaustive(rng):
     return pong["launches"]
 
 
+def phase_golden_cluster():
+    """Clustering on the card against the reference goldens: `clust` in
+    its three modes (clu0-clu2), `rescorediagonal` in three (resc0-resc2),
+    `kmermatcher` v1 (kmpref) and v2 with three flag sets (km_*), the
+    `linclust` and cascaded `cluster` workflows forced to
+    --linclust-version 1 (linclu, casclu); then `createindex` of the toy DB
+    and `prefilter` of all 500 queries against the prebuilt index, equal to
+    the run without it (phase 4's `pref`)."""
+    from mmseqs2_tpu_torch.commands import prefilter_kmer
+    from mmseqs2_tpu_torch.ops import rescore, sw
+    qdb, aln, pref = GOLDEN / "qdb", GOLDEN / "aln", GOLDEN / "pref"
+    cases = [(f"clust --cluster-mode {m}", ["clust", qdb, aln],
+              ["--cluster-mode", m], f"clu{m}") for m in range(3)]
+    cases += [(f"rescorediagonal --rescore-mode {m}",
+               ["rescorediagonal", qdb, qdb, pref], ["--rescore-mode", m],
+               f"resc{m}") for m in range(3)]
+    cases += [("kmermatcher v1", ["kmermatcher", qdb],
+               ["--linclust-version", 1], "kmpref")]
+    cases += [(f"kmermatcher v2 {' '.join(flags) or 'default'}",
+               ["kmermatcher", qdb], flags, gold) for flags, gold in (
+                   ([], "km_default"), (["--include-adjacency", "0"], "km_ct"),
+                   (["--include-count-table", "0"], "km_adj"))]
+    cases += [(f"{cmd} --linclust-version 1", [cmd, qdb],
+               ["--linclust-version", 1], gold)
+              for cmd, gold in (("linclust", "linclu"), ("cluster", "casclu"))]
+    for name, head, flags, gold in cases:
+        out = WORK / f"golden_{gold}"
+        tail = [WORK / f"golden_{gold}_tmp"] if head[0] in (
+            "linclust", "cluster") else []
+        sw_before = sw.sw_multi.launches
+        rs_before = rescore.diag_rescore.launches
+        t0 = time.perf_counter()
+        run_cli([*head, out, *tail, *flags])
+        wall = time.perf_counter() - t0
+        got, want = entries(out), entries(GOLDEN / gold)
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k))
+        if head[0] == "rescorediagonal":    # the golden holds every query
+            bad = [k for k in want if got.get(k) != want[k]]
+        log(f"golden {name}: {len(want)} entries, {len(bad)} differ, "
+            f"{wall:.2f} s (sw_multi {sw.sw_multi.launches - sw_before}, "
+            f"diag_rescore {rescore.diag_rescore.launches - rs_before} "
+            f"launches)")
+        if bad:
+            raise AssertionError(f"golden parity ({name}) fails for keys "
+                                 f"{bad[:10]}")
+
+    tdb = WORK / "toy_indexed"
+    for suf in ("", ".index", ".dbtype", "_h", "_h.index", "_h.dbtype"):
+        shutil.copy(f"{qdb}{suf}", f"{tdb}{suf}")
+    t0 = time.perf_counter()
+    run_cli(["createindex", tdb, WORK / "toy_index_tmp"])
+    index_s = time.perf_counter() - t0
+    prefilter_kmer.reset_stats()
+    t0 = time.perf_counter()
+    run_cli(["prefilter", tdb, tdb, WORK / "toy_pref_indexed"])
+    wall = time.perf_counter() - t0
+    got, want = entries(WORK / "toy_pref_indexed"), entries(
+        WORK / "golden_pref")
+    bad = [k for k in want if got.get(k) != want[k]]
+    log(f"golden prefilter against a createindex index: {len(want)} "
+        f"queries, {len(bad)} differ from the run without it, createindex "
+        f"{index_s:.2f} s, prefilter {wall:.2f} s (index load "
+        f"{prefilter_kmer.STATS['index_s']:.2f} s)")
+    if bad or len(got) != len(want):
+        raise AssertionError(f"prefilter against the prebuilt index differs "
+                             f"for queries {bad[:10]}")
+
+
 def lengths(rng, n):
     return np.clip(rng.lognormal(mean=5.68, sigma=0.55, size=n), 50,
                    2000).astype(np.int64)
@@ -1130,11 +1253,10 @@ def write_fasta(path, names, seqs):
             f.write(f">{name}\n{aa[s].tobytes().decode()}\n")
 
 
-def make_scale_data(rng, n_targets, n_queries):
-    """SwissProt-like targets in planted families, queries as mutated
-    fragments of targets plus 10% unrelated (experiments/make_scale_db.py's
-    recipe). Returns per-query family (or -1) and the target families."""
-    n_fam = max(n_targets // 8, 1)
+def family_targets(rng, n_targets, n_fam, prefix="T"):
+    """SwissProt-like sequences drawn from n_fam planted families: each a
+    copy of its family's ancestor with 15-45% of its letters mutated, 30%
+    of them cut at both ends. Returns (sequences, names, families)."""
     ancestors = [rng.choice(20, size=int(L), p=PBACK)
                  for L in lengths(rng, n_fam)]
     tseqs, tnames, tfam = [], [], []
@@ -1148,8 +1270,17 @@ def make_scale_data(rng, n_targets, n_queries):
             hi = len(s) - int(rng.integers(0, max(len(s) // 4, 1)))
             s = s[lo:max(hi, lo + 50)]
         tseqs.append(s)
-        tnames.append(f"T{i}")
+        tnames.append(f"{prefix}{i}")
         tfam.append(f)
+    return tseqs, tnames, tfam
+
+
+def make_scale_data(rng, n_targets, n_queries):
+    """SwissProt-like targets in planted families, queries as mutated
+    fragments of targets plus 10% unrelated (experiments/make_scale_db.py's
+    recipe). Returns per-query family (or -1) and the target families."""
+    tseqs, tnames, tfam = family_targets(rng, n_targets,
+                                         max(n_targets // 8, 1))
     qseqs, qnames, qfam = [], [], []
     for i in range(n_queries):
         if rng.random() < 0.1:
@@ -1314,7 +1445,8 @@ def phase_trace(label, args, out, reference, untraced_wall, focus=None):
     the metric: the card's busy and idle shares of the traced wall, device
     time by kernel (and, for `focus`, the count and seconds of the kernels
     whose names hold it, with their share of the device time), and what
-    tracing costs. The traced run must give the entries of `reference`."""
+    tracing costs. The traced run must give the entries of `reference` (a
+    DB) or its bytes (a flat file)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1331,7 +1463,12 @@ def phase_trace(label, args, out, reference, untraced_wall, focus=None):
     path.unlink()
     if busy <= 0:
         raise AssertionError("the profiler trace holds no device activity")
-    if entries(out) != entries(reference):
+    if os.path.exists(f"{reference}.dbtype"):
+        same = entries(out) == entries(reference)
+    else:
+        same = pathlib.Path(out).read_bytes() == \
+            pathlib.Path(reference).read_bytes()
+    if not same:
         raise AssertionError(f"the traced {label} run gave other results")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     res = dict(
@@ -1375,6 +1512,7 @@ def phase_easy_search(n_queries=1_000, n_check=32):
     sw.sw_multi.launches = 0
     sw.sw_multi.form_launches = dict.fromkeys(sw.sw_multi.form_launches, 0)
     rescore.diag_rescore.launches = 0
+    sw.sw_offset.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run_cli(["easy-search", WORK / "queries.fasta", WORK / "targets.fasta",
@@ -1395,6 +1533,7 @@ def phase_easy_search(n_queries=1_000, n_check=32):
         targets=N_TARGETS, queries=n_queries, wall_s=wall,
         queries_per_s=n_queries / wall, hits=n_hits,
         queries_with_hits=len(got), launches=launches,
+        launches_sw_offset=sw.sw_offset.launches,
         createdb_s=steps["createdb"], prefilter_s=steps["prefilter"],
         align_s=steps["align"],
         convertalis_s=wall - steps["createdb"] - steps["search"],
@@ -1453,7 +1592,53 @@ def phase_easy_search(n_queries=1_000, n_check=32):
         prefilter_kmer.STATS["rescore"], rescore.diag_rescore.launches,
         trace["focus"])
     log("rescore-record " + json.dumps(trace["diag_rescore"]))
-    return res, trace
+
+    # beside the main path, not in its place: the same search against a
+    # target DB indexed beforehand, and its prefilter step traced
+    indexed = phase_index_search(res, n_queries)
+    indexed["trace"] = phase_trace(
+        "prefilter against the prebuilt index",
+        ["prefilter", tmp / "query", WORK / "tdb", WORK / "pref_idx_traced",
+         "-s", "5.7"],
+        WORK / "pref_idx_traced", tmp / "search_tmp" / "pref_0",
+        indexed["prefilter_s"], focus="rescore_kernel")
+    return res, trace, indexed
+
+
+def phase_index_search(easy, n_queries):
+    """easy-search of phase 6 once more, against the target DB indexed
+    beforehand by `createindex -s 5.7` (bench.py's protocol): the index
+    build's seconds beside the search's wall, and the hit lines equal to
+    those of the run without the index."""
+    import torch
+    from mmseqs2_tpu_torch.commands import prefilter_kmer
+    from mmseqs2_tpu_torch.workflow import engine
+    tdb = WORK / "tdb"           # phase 5's createdb of targets.fasta
+    t0 = time.perf_counter()
+    run_cli(["createindex", tdb, WORK / "ci_tmp", "-s", "5.7"])
+    index_s = time.perf_counter() - t0
+    prefilter_kmer.reset_stats()
+    engine.STEP_SECONDS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_cli(["easy-search", WORK / "queries.fasta", tdb, WORK / "es_idx.m8",
+             WORK / "es_idx_tmp"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, want = m8_by_query(WORK / "es_idx.m8"), m8_by_query(WORK / "es.m8")
+    bad = sorted(set(got) ^ set(want)) + [q for q in want
+                                          if got.get(q) != want[q]]
+    res = dict(index_s=index_s, wall_s=wall, queries_per_s=n_queries / wall,
+               wall_with_index_s=wall + index_s,
+               prefilter_s=engine.STEP_SECONDS["prefilter"],
+               index_load_s=prefilter_kmer.STATS["index_s"],
+               hits=sum(len(v) for v in got.values()),
+               wall_without_index_s=easy["wall_s"])
+    log("easy-search with a prebuilt index " + json.dumps(res))
+    if bad:
+        raise AssertionError(f"easy-search against the prebuilt index "
+                             f"differs for queries {bad[:10]}")
+    return res
 
 
 def rescore_record(log_, launches, focus):
@@ -1684,6 +1869,281 @@ def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
                 gapped_trace=gapped_trace)
 
 
+@contextlib.contextmanager
+def step_record():
+    """While this holds, every workflow step that runs records its command,
+    its output's name, its wall seconds, and what it launched and read back
+    (a step inside a step counts in both): sw_multi by form,
+    diag_rescore, the aligner's read-backs; for a prefilter step also its
+    route (the card's flushes, or the host matcher when it dispatched none)
+    and its index seconds. Yields the list of records."""
+    from mmseqs2_tpu_torch.align import aligner
+    from mmseqs2_tpu_torch.commands import prefilter_kmer
+    from mmseqs2_tpu_torch.ops import rescore, sw
+    from mmseqs2_tpu_torch.workflow import engine
+    step = engine.Workflow.step
+    records = []
+
+    def snap():
+        return (sw.sw_multi.launches, dict(sw.sw_multi.form_launches),
+                rescore.diag_rescore.launches, aligner.STATS["readbacks"],
+                prefilter_kmer.STATS["flushes"],
+                prefilter_kmer.STATS["index_s"])
+
+    def recorded(self, out_db, command_name, args, par=None):
+        if not engine.not_exists(out_db) and not self.force_reuse:
+            return step(self, out_db, command_name, args, par)
+        before = snap()
+        t0 = time.perf_counter()
+        step(self, out_db, command_name, args, par)
+        wall = time.perf_counter() - t0
+        after = snap()
+        rec = dict(
+            command=command_name, out=os.path.basename(out_db),
+            s=wall, sw_multi=after[0] - before[0],
+            sw_multi_by_form={k: after[1][k] - before[1][k]
+                              for k in after[1]},
+            diag_rescore=after[2] - before[2],
+            readbacks=after[3] - before[3])
+        if command_name == "prefilter":
+            rec.update(route="card" if after[4] > before[4] else "host",
+                       flushes=after[4] - before[4],
+                       index_s=after[5] - before[5])
+        records.append(rec)
+    engine.Workflow.step = recorded
+    try:
+        yield records
+    finally:
+        engine.Workflow.step = step
+
+
+def cluster_outputs_check(prefix, n_seqs):
+    """An easy-* clustering's three files: every input sequence in exactly
+    one cluster of _cluster.tsv, each representative its own member, one
+    _rep_seq.fasta record a cluster, and _all_seqs.fasta a representative
+    line a cluster plus every member's record. Returns the cluster count."""
+    tsv = pathlib.Path(f"{prefix}_cluster.tsv").read_text().splitlines()
+    pairs = [line.split("\t") for line in tsv]
+    reps = {r for r, _ in pairs}
+    members = [m for _, m in pairs]
+    reps_fa = pathlib.Path(f"{prefix}_rep_seq.fasta").read_bytes()
+    all_fa = pathlib.Path(f"{prefix}_all_seqs.fasta").read_bytes()
+    if (len(members) != n_seqs or len(set(members)) != n_seqs
+            or not reps <= set(members)
+            or reps_fa.count(b">") != len(reps)
+            or all_fa.count(b">") != n_seqs + len(reps)):
+        raise AssertionError(f"{prefix}: not one cluster for every sequence "
+                             f"({len(pairs)} lines, {len(reps)} clusters)")
+    return len(reps)
+
+
+def kernel_wrappers():
+    """Every kernel's wrapper by the kernel's name; each counts its
+    launches in `.launches`."""
+    from mmseqs2_tpu_torch.ops import gapless, rescore, sw
+    return dict(sw_multi=sw.sw_multi, diag_rescore=rescore.diag_rescore,
+                gapless=gapless.gapless, gapless_score=gapless.gapless_score,
+                sw_single=sw.sw_single, sw_offset=sw.sw_offset,
+                sw_score=sw.sw_score)
+
+
+def run_clustering(cmd, fasta, label, flags):
+    """One easy-* clustering on the card, every kernel's count set to 0
+    just before and read just after: wall, sequences/s, clusters, the wall
+    by step, align2clust's work (its gapped calls, their sw_multi launches
+    by form and their read-backs) and each prefilter and align round's
+    route, index seconds and launches."""
+    import torch
+    from mmseqs2_tpu_torch.align import aligner
+    from mmseqs2_tpu_torch.commands import align2clust, prefilter_kmer
+    from mmseqs2_tpu_torch.ops import sw
+    from mmseqs2_tpu_torch.workflow import engine
+    n_seqs = pathlib.Path(fasta).read_bytes().count(b">")
+    aligner.reset_stats()
+    align2clust.reset_stats()
+    prefilter_kmer.reset_stats()
+    engine.STEP_SECONDS.clear()
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    sw.sw_multi.form_launches = dict.fromkeys(sw.sw_multi.form_launches, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with step_record() as steps:
+        run_cli([cmd, fasta, WORK / label, WORK / f"{label}_tmp", *flags])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_clu = cluster_outputs_check(WORK / label, n_seqs)
+    a2c = [r for r in steps if r["command"] == "align2clust"]
+    a2c_forms = {k: sum(r["sw_multi_by_form"][k] for r in a2c)
+                 for k in sw.sw_multi.form_launches}
+    rounds = [dict((k, r[k]) for k in ("command", "out", "s", "route",
+                                       "index_s", "flushes", "diag_rescore",
+                                       "sw_multi", "readbacks") if k in r)
+              for r in steps if r["command"] in ("prefilter", "align",
+                                                 "rescorediagonal",
+                                                 "kmermatcher")]
+    res = dict(
+        command=cmd, flags=flags, seqs=n_seqs, wall_s=wall,
+        seqs_per_s=n_seqs / wall, clusters=n_clu,
+        step_s=dict(engine.STEP_SECONDS),
+        launches=dict({n: w.launches for n, w in wrappers.items()},
+                      sw_multi_by_form=dict(sw.sw_multi.form_launches)),
+        align2clust=dict(align2clust.STATS, runs=len(a2c),
+                         s=sum(r["s"] for r in a2c),
+                         sw_multi=sum(r["sw_multi"] for r in a2c),
+                         sw_multi_by_form=a2c_forms,
+                         readbacks=sum(r["readbacks"] for r in a2c)),
+        aligner=dict(pairs=aligner.STATS["pairs"],
+                     kernel_s=aligner.STATS["kernel_ms"] / 1e3,
+                     scan_host_s=aligner.STATS["scan_s"],
+                     backtrace_s=aligner.STATS["backtrace_s"],
+                     readbacks=aligner.STATS["readbacks"]),
+        rounds=rounds)
+    log(f"clustering {label} " + json.dumps(res))
+    return res
+
+
+def same_cluster_files(a, b):
+    return [suf for suf in ("_cluster.tsv", "_rep_seq.fasta",
+                            "_all_seqs.fasta")
+            if pathlib.Path(f"{a}{suf}").read_bytes()
+            != pathlib.Path(f"{b}{suf}").read_bytes()]
+
+
+# MMseqs2's README example of easy-cluster (its "Clustering" section)
+README_CLUSTER = ["--min-seq-id", "0.5", "-c", "0.8", "--cov-mode", "1"]
+
+
+# the CPU side of phase 8's cross-check, run in a subprocess during phase 4
+# (argv: FASTA, work directory, easy-cluster's flags)
+CPU_CHECK = r"""
+import sys
+from mmseqs2_tpu_torch.cli import main
+fasta, work, flags = sys.argv[1], sys.argv[2], sys.argv[3:]
+for cmd, label, extra in (("easy-linclust", "linclust", []),
+                          ("easy-cluster", "cluster", flags)):
+    assert main([cmd, fasta, f"{work}/chk_{label}_cpu",
+                 f"{work}/chk_{label}_cpu_tmp", *extra]) == 0
+"""
+
+
+def near_duplicates(seqs, n, rng):
+    """n copies of sequences of `seqs`, each with 2% of its letters
+    mutated; two thirds of them also take one insertion or deletion of 1-3
+    letters at 30-70% of their length, so that the ungapped rescore on the
+    prefilter's diagonal misses coverage and align2clust's gapped fallback
+    has to accept them."""
+    out = []
+    for k, j in enumerate(rng.choice(len(seqs), size=n, replace=False)):
+        s = seqs[j].copy()
+        mut = rng.random(len(s)) < 0.02
+        s[mut] = rng.choice(20, size=int(mut.sum()), p=PBACK)
+        if k % 3:
+            at = int(len(s) * rng.uniform(0.3, 0.7))
+            d = int(rng.integers(1, 4))
+            s = (np.concatenate([s[:at], rng.choice(20, size=d, p=PBACK),
+                                 s[at:]]) if k % 3 == 1
+                 else np.concatenate([s[:at], s[at + d:]]))
+        out.append(s)
+    return out
+
+
+@contextlib.contextmanager
+def cluster_cpu_check(n_check=2_000, n_dup=200):
+    """Phase 8's check set and its CPU side. The set, from its own
+    generator: n_check sequences of phase 5's recipe (as many families as
+    the 50,000 targets have, so that it is composed like their first
+    n_check) and n_dup planted near-duplicates of them. A subprocess runs
+    easy-linclust and easy-cluster on it with the CPU requested while the
+    block runs (phase 4: correctness only, no number of it is a metric);
+    leaving the block waits for it, so nothing measured runs beside it.
+    Yields a dict with the set's path; `cpu_s` once done."""
+    rng = np.random.default_rng(SEED + 10)
+    seqs, names, _ = family_targets(rng, n_check, max(N_TARGETS // 8, 1),
+                                    prefix="C")
+    dups = near_duplicates(seqs, n_dup, rng)
+    check = WORK / "check.fasta"
+    write_fasta(check, names + [f"D{k}" for k in range(n_dup)], seqs + dups)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="4",
+               MMSEQS2_TPU_TORCH_DEVICE="cpu")
+    out = dict(fasta=check, n_check=n_check, n_dup=n_dup)
+    t0 = time.perf_counter()
+    with open(WORK / "cpu_check.err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CPU_CHECK, str(check), str(WORK),
+             *README_CLUSTER], env=env, cwd=ROOT,
+            stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        yield out
+        rc = proc.wait(timeout=900)
+        out["cpu_s"] = time.perf_counter() - t0
+        log(f"clustering CPU side: {n_check} + {n_dup} sequences, "
+            f"easy-linclust and easy-cluster in {out['cpu_s']:.2f} s, rc {rc}")
+        if rc != 0:
+            raise RuntimeError("the CPU side of the clustering cross-check "
+                               "failed: "
+                               + (WORK / "cpu_check.err").read_text()[-3000:])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def phase_clustering(check, n_cluster=10_000):
+    """Clustering at real size on phase 5's SwissProt-like targets:
+    easy-linclust of all of them with the defaults, easy-cluster of the
+    first n_cluster (a cut for time) at MMseqs2's README parameters. Then
+    both on the check set of cluster_cpu_check, on the card (align2clust
+    must accept pairs by its ungapped rescore and by its gapped fallback),
+    their files equal to the CPU side's, and the card's easy-cluster of it
+    once more under torch.profiler (a cut for time: the check set, not the
+    n_cluster run)."""
+    records = (WORK / "targets.fasta").read_text().split(">")[1:]
+    head = WORK / f"targets_{n_cluster}.fasta"
+    head.write_text("".join(">" + r for r in records[:n_cluster]))
+
+    lin = run_clustering("easy-linclust", WORK / "targets.fasta",
+                         "linclust", [])
+    cas = run_clustering("easy-cluster", head, "cluster", README_CLUSTER)
+    for name, res in (("sw_multi", cas), ("diag_rescore", cas),
+                      ("sw_multi", lin)):
+        if res["launches"][name] <= 0:
+            raise AssertionError(f"{res['command']} launched no {name} "
+                                 f"kernel")
+
+    cross = {}
+    for cmd, flags in (("easy-linclust", []),
+                       ("easy-cluster", README_CLUSTER)):
+        label = cmd.replace("easy-", "")
+        cross[label] = run_clustering(cmd, check["fasta"], f"chk_{label}",
+                                      flags)
+        bad = same_cluster_files(WORK / f"chk_{label}",
+                                 WORK / f"chk_{label}_cpu")
+        a2c = cross[label]["align2clust"]
+        log(f"clustering CPU cross-check: {cmd} of {check['n_check']} "
+            f"sequences and {check['n_dup']} planted near-duplicates, "
+            f"{cross[label]['clusters']} clusters (align2clust accepted "
+            f"{a2c['ungapped_accepted']} ungapped, {a2c['gapped_accepted']} "
+            f"gapped), {len(bad)} of 3 files differ from the CPU side's; "
+            f"card {cross[label]['wall_s']:.2f} s, CPU side of both "
+            f"commands {check['cpu_s']:.2f} s (beside phase 4)")
+        if bad:
+            raise AssertionError(f"{cmd}: the card's and the CPU's {bad} "
+                                 f"differ")
+    a2c = cross["linclust"]["align2clust"]
+    if a2c["gapped_accepted"] <= 0 or a2c["ungapped_accepted"] <= 0:
+        raise AssertionError(f"the check set's easy-linclust did not accept "
+                             f"pairs by both routes of align2clust: {a2c}")
+    trace = phase_trace(
+        "easy-cluster", ["easy-cluster", check["fasta"], WORK / "chk_traced",
+                         WORK / "chk_traced_tmp", *README_CLUSTER],
+        WORK / "chk_traced_cluster.tsv", WORK / "chk_cluster_cluster.tsv",
+        cross["cluster"]["wall_s"], focus="sw_kernel")
+    return dict(linclust=lin, cluster=cas, cross_check=dict(
+        cross, cpu_both_s=check["cpu_s"]), trace=trace)
+
+
 def main():
     try:
         import torch
@@ -1724,32 +2184,50 @@ def main():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    phase_done(2)
 
     # 3. kernels against their plain versions
     rows = phase_kernels(rng)
     rrows = phase_rescore_kernel(rng)
     xrows = phase_exhaustive_kernels(rng)
+    phase_done(3)
 
-    # 4. golden parity on the card
-    phase_golden()
-    phase_golden_search()
-    srv_launches = phase_golden_exhaustive(rng)
+    # 4. golden parity on the card, while phase 8's CPU side runs
+    with cluster_cpu_check() as check:
+        phase_golden()
+        phase_golden_search()
+        srv_launches = phase_golden_exhaustive(rng)
+        phase_golden_cluster()
+    phase_done(4)
 
     # 5. the align stage alone at real size (its traced rerun went when
     # phase 7 came: phase 6 and 7 trace their own steps)
     real = phase_real_size(rng)
+    phase_done(5)
 
     # 6. the main path at real size: easy-search, then a traced prefilter
-    easy, easy_trace = phase_easy_search()
+    easy, easy_trace, _ = phase_easy_search()
+    phase_done(6)
 
-    # 7. this slice at real size: the exhaustive prefilter
+    # 7. the exhaustive prefilter at real size
     exh = phase_exhaustive()
+    phase_done(7)
 
-    # 8. kernels line; launches are those of the run of the path that
+    # 8. clustering at real size
+    clu = phase_clustering(check)
+    phase_done(8)
+
+    # 9. kernels line; launches are those of the run of the path that
     # launches the kernel: easy-search, ungappedprefilter, the server's
     # process under ungappedprefilter --gpu 1 (gapless_score) and under
-    # phase 4's gappedprefilter --gpu 1 (sw_score), gappedprefilter; 0 for
-    # sw_offset, which has no caller and which phase 3 launches
+    # phase 4's gappedprefilter --gpu 1 (sw_score), gappedprefilter;
+    # easy-search's for sw_offset, which has no caller and which phase 3
+    # launches; and beside them each kernel's launches on the clustering
+    # path (phase 8's real-size easy-linclust and easy-cluster runs)
+    clu_launches = {name: dict(
+        easy_linclust=clu["linclust"]["launches"][name],
+        easy_cluster=clu["cluster"]["launches"][name])
+        for name in kernel_wrappers()}
     rep = next(r for c, r in rows if c["nq"] == 16 and c["lq"] == 512
                and c["lt"] == 512 and not c["reverse"] and c["go"] == 11
                and not c.get("negative") and not c.get("big")
@@ -1772,7 +2250,7 @@ def main():
         ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
         bound_by=rep["bound_by"], library_ms=None,
         equal=all(r["equal"] for _, r in rows),
-        at=rep["case"]), dict(
+        at=rep["case"], launches_clustering=clu_launches["sw_multi"]), dict(
         name="diag_rescore", route="cuda",
         source="mmseqs2_tpu_torch/csrc/rescore.cu",
         replaces="mmseqs2_tpu/prefilter/pallas_rescore.py:38",
@@ -1787,7 +2265,8 @@ def main():
         path_shape_bound_ms=rpath["bound_ms"], path_shape_at=rpath["case"],
         path_trace_launches=easy_trace["diag_rescore"]["launches"],
         path_trace_ms_per_launch=easy_trace["diag_rescore"][
-            "trace_ms_per_launch"])]
+            "trace_ms_per_launch"],
+        launches_clustering=clu_launches["diag_rescore"])]
     replaces = dict(gapless="mmseqs2_tpu/ops/pallas_sw.py:396",
                     gapless_score="mmseqs2_tpu/ops/pallas_sw.py:503",
                     sw_single="mmseqs2_tpu/ops/pallas_sw.py:396",
@@ -1801,7 +2280,8 @@ def main():
     path_launches = dict(gapless=exh["ungapped"]["launches"],
                          gapless_score=exh["server"]["launches"],
                          sw_single=exh["gapped"]["launches"],
-                         sw_offset=0, sw_score=srv_launches["sw_score"])
+                         sw_offset=easy["launches_sw_offset"],
+                         sw_score=srv_launches["sw_score"])
     for name, krows in xrows.items():
         xrep = next(r for c, r in krows if c["lq"] == 512 and c["lt"] == 512
                     and c["lanes"] == 16384 and "variant" not in c)
@@ -1814,7 +2294,8 @@ def main():
             ms=xrep["ms"], plain_ms=xrep["plain_ms"],
             bound_ms=xrep["bound_ms"], bound_by=xrep["bound_by"],
             library_ms=None, equal=all(r["equal"] for _, r in krows),
-            at=xrep["case"], **path_forms.get(name, {})))
+            at=xrep["case"], launches_clustering=clu_launches[name],
+            **path_forms.get(name, {})))
     shutil.rmtree(WORK)
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(f"card: {card}")

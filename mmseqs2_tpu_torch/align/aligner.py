@@ -48,7 +48,8 @@ BUCKET_MIN = 32        # smallest query/target length bucket
 # computed = what the kernel's strips cover, ops/sw.py:rows_computed), host
 # seconds spent in the scans (packing, launches, read-back) and in the
 # backtrace, the kernels' device milliseconds (CUDA events; 0 on the CPU),
-# and for each launch in the int32 form the bound that ruled out int16.
+# the read-backs of the scans' results (one a launch), and for each launch
+# in the int32 form the bound that ruled out int16.
 STATS = {}
 
 
@@ -56,7 +57,7 @@ def reset_stats():
     STATS.clear()
     STATS.update(pairs=0, rev_pairs=0, cells_real=0, cells_padded=0,
                  cells_computed=0, scan_s=0.0, kernel_ms=0.0,
-                 backtrace_s=0.0, int32_launches=[])
+                 backtrace_s=0.0, readbacks=0, int32_launches=[])
 
 
 reset_stats()
@@ -250,6 +251,7 @@ class Aligner:
         result = {}
         for refs, out, ev in pending:
             s, qe, te = out.cpu().numpy()
+            STATS["readbacks"] += 1
             if ev is not None:
                 STATS["kernel_ms"] += ev[0].elapsed_time(ev[1])
             for lane, ref in enumerate(refs):

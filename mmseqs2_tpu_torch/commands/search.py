@@ -6,9 +6,9 @@ single and multi sensitivity stepping. Reference: src/workflow/Search.cpp
 --prefilter-mode: 0 k-mer index (default), 1 exhaustive ungapped, 2
 exhaustive (all-vs-all fake prefilter), mirroring Parameters::PREF_MODE_*;
 1 and 2 both run `ungappedprefilter`, as in the JAX package. The sliced,
-target-profile, nucleotide, translated and iterative searches, --lca-search,
---alignment-mode 4 and --prefilter-mode 3 are not yet ported (see
-ROADMAP.md) and raise.
+target-profile, nucleotide, translated and iterative searches, --lca-search
+and --prefilter-mode 3 are not yet ported (see ROADMAP.md) and raise.
+--alignment-mode 4 runs `rescorediagonal` in place of `align`.
 """
 
 from ..db import dbtype as dbt
@@ -51,8 +51,6 @@ def search(par, command):
         _not_ported(f"search --prefilter-mode {par.prefilter_mode}")
     if par.lca_search:
         _not_ported("search --lca-search (lcaalign)")
-    if par.alignment_mode == 4:
-        _not_ported("search --alignment-mode 4 (rescorediagonal)")
 
     # search raises the default prefilter sensitivity (Search.cpp:24)
     if not par.was_set("sensitivity"):
@@ -64,10 +62,18 @@ def search(par, command):
     start_sens = min(par.start_sens, target_sens)
     pref_cmd = PREF_COMMANDS[par.prefilter_mode]
 
+    align_module = "align"
+    # ALIGNMENT_MODE_UNGAPPED (4): replace align with rescorediagonal
+    # --rescore-mode 2 (Search.cpp:261,314; map.sh path)
+    if par.alignment_mode == 4:
+        align_module = "rescorediagonal"
+        if not par.was_set("rescore_mode"):
+            par.set("rescore_mode", 2)
+
     if sens_steps <= 1:
         pref = wf.path("pref_0")
         wf.step(pref, pref_cmd, [qdb, tdb, pref, "-s", target_sens], par)
-        wf.step(out_aln, "align", [qdb, tdb, pref, out_aln], par)
+        wf.step(out_aln, align_module, [qdb, tdb, pref, out_aln], par)
     else:
         # blastp.sh multi-step: search remaining queries at increasing
         # sensitivity, merge per-step alignment results

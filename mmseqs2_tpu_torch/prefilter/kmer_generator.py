@@ -155,13 +155,6 @@ class SubKmerScores:
         cc = np.clip(c, 0, self._vspan - 1)
         return np.where(inr, self._cnt[rows, cc], 0).astype(np.int64)
 
-    def row(self, idx: int):
-        """(scores int16 desc, kmer indices int32) for sub-k-mer `idx`."""
-        idx = int(idx)
-        if not self._have[idx]:
-            self.ensure_rows(np.array([idx]))
-        return self._scores[idx], self._idx[idx]
-
 
 def divide_steps(k: int):
     three_cnt = k // 3
@@ -186,34 +179,18 @@ class KmerGenerator:
         self.tables = {2: two, 3: three}
         self.powers = kmer_powers(alpha, kmer_size)
 
-    def generate(self, kmer_letters: np.ndarray, threshold: int,
-                 pos: int = 0):
-        """All similar k-mer indices (reference order) with score >= threshold.
-
-        `pos` (the window's query position) is unused for sequence queries;
-        the profile generator keys its rows off it."""
-        rows = []
-        mults = []
-        off = 0
-        for step in self.steps:
-            table = self.tables[step]
-            sub_idx = int(kmer_letters[off: off + step].astype(np.int64)
-                          @ table.powers)
-            rows.append(table.row(sub_idx))
-            mults.append(int(self.powers[off]))
-            off += step
-        return _enumerate_products(rows, mults, threshold, self.MAX_RESULT)
-
     def generate_all(self, windows: np.ndarray, thresholds: np.ndarray,
                      positions: np.ndarray = None):
-        """Batched `generate` over all windows of a query at once.
+        """All similar k-mer indices with score >= threshold, for all
+        windows of a query at once.
 
         windows: (W, k) int letters; thresholds: (W,) per-window (bias
         adjusted) score cutoffs. Returns (codes int64, window_of int64) —
-        the concatenation of per-window enumerations in identical order to
-        calling `generate` per window (reference enumeration order,
-        KmerGenerator.cpp:30-110). `positions` is unused for sequence
-        queries (profile generators key rows off it)."""
+        the concatenation of the per-window enumerations, each in the
+        reference's order (KmerGenerator::generateKmerList's cascaded
+        cutoff products, KmerGenerator.cpp:30-110; the JAX package's
+        per-window `generate`). `positions` is unused for sequence queries
+        (profile generators key rows off it)."""
         W = len(windows)
         steps = []
         off = 0
@@ -250,13 +227,6 @@ class ProfileKmerGenerator:
         self.offsets = np.asarray(offsets, dtype=np.int64)
         self.powers = kmer_powers(alpha, kmer_size)
 
-    def generate(self, kmer_letters: np.ndarray, threshold: int,
-                 pos: int = 0):
-        rows = [(self.scores[pos + int(o)], self.idx[pos + int(o)])
-                for o in self.offsets]
-        mults = [int(self.powers[j]) for j in range(self.k)]
-        return _enumerate_products(rows, mults, threshold, self.MAX_RESULT)
-
     def count_ge(self, rows: np.ndarray, cutoff: np.ndarray):
         if not hasattr(self, "_cnt"):
             vmin = int(self.scores.min())
@@ -285,63 +255,20 @@ class ProfileKmerGenerator:
                              self.MAX_RESULT)
 
 
-def _enumerate_products(rows, mults, threshold, max_result):
-    """KmerGenerator::generateKmerList's cascaded cutoff products.
-
-    rows: per divide step (scores desc, sub-k-mer indices); mults: the
-    little-endian positional multiplier of each step. Output order is
-    prefix-major (calculateArrayProduct's i-outer/j-inner loop)."""
-    n = len(rows)
-    highest = [int(r[0][0]) for r in rows]
-    possible_rest = [0] * n
-    for i in range(n - 1, 0, -1):
-        possible_rest[i - 1] = highest[i] + possible_rest[i]
-
-    cutoff1 = threshold - possible_rest[0]
-    s0, i0 = rows[0]
-    m = int(np.searchsorted(-s0.astype(np.int64), -int(cutoff1),
-                            side="right"))
-    cur_scores = s0[:m].astype(np.int64)
-    cur_index = i0[:m].astype(np.int64) * mults[0]
-
-    for step_i in range(n - 1):
-        if len(cur_scores) == 0:
-            break
-        s_next, i_next = rows[step_i + 1]
-        rest = possible_rest[step_i + 1]
-        cutoff2 = threshold - cur_scores - rest          # per candidate
-        counts = np.searchsorted(-s_next.astype(np.int64), -cutoff2,
-                                 side="right")
-        total = int(counts.sum())
-        if total == 0:
-            cur_scores = np.zeros(0, dtype=np.int64)
-            cur_index = np.zeros(0, dtype=np.int64)
-            break
-        rep = np.repeat(np.arange(len(cur_scores)), counts)
-        # within-candidate j index: 0..counts[i]-1
-        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        j = np.arange(total) - np.repeat(starts, counts)
-        cur_scores = cur_scores[rep] + s_next[j].astype(np.int64)
-        cur_index = cur_index[rep] + i_next[j].astype(np.int64) \
-            * mults[step_i + 1]
-        if total >= max_result:
-            cur_scores = cur_scores[:max_result]
-            cur_index = cur_index[:max_result]
-    return cur_index
-
-
 class _TooBig(Exception):
     pass
 
 
 def _expand_batch(steps, thr: np.ndarray, max_result: int,
                   budget: int = 1 << 26):
-    """Whole-query flat version of _enumerate_products: all windows' cutoff
-    cartesian products in one pass of numpy segment ops.
+    """All windows' cascaded cutoff cartesian products
+    (KmerGenerator::generateKmerList) in one pass of numpy segment ops.
 
     steps: per divide step (scores_2d desc-sorted, idx_2d, row_of_window,
     little-endian multiplier). Returns (codes, window_of); the slice of
-    `codes` where window_of == w equals generate() for window w. If a step
+    `codes` where window_of == w is window w's enumeration, prefix-major
+    (calculateArrayProduct's i-outer/j-inner loop), cut at max_result
+    candidates (the window's first ones). If a step
     would materialize more than `budget` candidates, the window set is
     split in half and retried (identical output, bounded memory)."""
     W = len(thr)

@@ -81,52 +81,43 @@ class QueryMatcher:
 
     def gather_hits(self, q_num: np.ndarray, comp_bias: np.ndarray):
         """Collect (local target id, diagonal u16) double-match candidates in
-        reference scan order."""
+        reference scan order: window by window (QueryMatcher.cpp:255-284),
+        each window's similar k-mers in the generator's order, each k-mer's
+        postings in index order. The windows are enumerated in one batch
+        (KmerGenerator.generate_all, the concatenation of the per-window
+        enumerations) and their postings expanded at once."""
         idx_all, pos_all, has_x = extract_kmers(
             q_num, self.index.offsets_pat, self.index.span,
             self.index.alpha, self.x_index)
-        ids_chunks = []
-        diag_chunks = []
-        kmer_list_len = 0
-        for w in range(len(pos_all)):
-            if has_x[w]:
-                continue
-            i = int(pos_all[w])
-            window = q_num[i + self.index.offsets_pat].astype(np.int64)
-            bias_f = comp_bias[i + self.index.offsets_pat].sum()
-            bias = int(np.trunc(bias_f - 0.5 if bias_f < 0.0
-                                else bias_f + 0.5))
-            thr = max(self.kmer_thr - bias, 0)
-            if self.take_only_best:
-                from .kmer_index import kmer_powers
-                similar = np.array(
-                    [int(window @ kmer_powers(self.index.alpha, len(window)))],
-                    dtype=np.int64)
-            else:
-                similar = self.generator.generate(window, thr, i)
-            kmer_list_len += len(similar)
-            if len(similar) == 0:
-                continue
-            starts, counts = self.index.lists(similar)
-            total = int(counts.sum())
-            if total == 0:
-                continue
-            base = np.repeat(starts, counts)
-            offs = np.arange(total) - np.repeat(
-                np.concatenate([[0], np.cumsum(counts)[:-1]]), counts)
-            ent = base + offs
-            seq_ids = self.index.entries_seq[ent]
-            t_pos = self.index.entries_pos[ent].astype(np.int64)
-            diag = np.uint16(i) - t_pos.astype(np.uint16)   # u16 wraparound
-            ids_chunks.append(seq_ids)
-            diag_chunks.append(diag.astype(np.uint16))
-        self.stats.kmers_per_pos = kmer_list_len / max(len(q_num), 1)
-        if not ids_chunks:
-            self.stats.db_matches = 0
+        pos = pos_all[~has_x]
+        if self.take_only_best:
+            codes, win_of = idx_all[~has_x], np.arange(len(pos))
+        elif len(pos):
+            cols = pos[:, None] + self.index.offsets_pat[None, :]
+            bias_f = comp_bias[cols].sum(axis=1)
+            bias = np.trunc(np.where(bias_f < 0.0, bias_f - 0.5,
+                                     bias_f + 0.5)).astype(np.int64)
+            thr = np.maximum(self.kmer_thr - bias, 0)
+            codes, win_of = self.generator.generate_all(
+                q_num[cols].astype(np.int64), thr, pos)
+        else:
+            codes = win_of = np.zeros(0, np.int64)
+        self.stats.kmers_per_pos = len(codes) / max(len(q_num), 1)
+        starts, counts = self.index.lists(codes)
+        counts = np.asarray(counts, np.int64)
+        total = int(counts.sum())
+        self.stats.db_matches = total
+        if total == 0:
             return (np.zeros(0, np.int64), np.zeros(0, np.uint16))
-        ids = np.concatenate(ids_chunks)
-        diags = np.concatenate(diag_chunks)
-        self.stats.db_matches = len(ids)
+        rep = np.repeat(np.arange(len(counts)), counts)
+        offs = np.arange(total) - np.repeat(
+            np.concatenate([[0], np.cumsum(counts)[:-1]]), counts)
+        ent = np.asarray(starts, np.int64)[rep] + offs
+        ids = self.index.entries_seq[ent]
+        t_pos = self.index.entries_pos[ent].astype(np.int64)
+        q_pos = pos[win_of][rep]
+        diags = (q_pos.astype(np.uint16)
+                 - t_pos.astype(np.uint16)).astype(np.uint16)  # u16 wrap
         return ids, diags
 
     @staticmethod

@@ -126,9 +126,16 @@ def test_entry_point_needs_cuda_or_cpu_request(tmp_path, monkeypatch):
 
 
 def test_unported_paths_say_so(tmp_path, on_cpu, capsys):
-    assert cli.main(["cluster", "a", "b", "c"]) == 1
+    assert cli.main(["clusterupdate", "a", "b", "c", "d", "e", "f"]) == 1
     assert "not yet ported" in capsys.readouterr().err
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.main(["cluster", str(GOLDEN / "qdb"), str(tmp_path / "clu"),
+                  str(tmp_path / "tmp"), "--cluster-reassign", "1"])
     nucl = REPO / "tests" / "golden" / "nucl"
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.main(["linclust", str(nucl / "ndb"), str(tmp_path / "clu"),
+                  str(tmp_path / "tmp")])
+    assert not (tmp_path / "clu.dbtype").exists()
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["align", str(nucl / "ndb"), str(nucl / "ndb"),
                   str(nucl / "n_pref"), str(tmp_path / "aln")])

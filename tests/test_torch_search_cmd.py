@@ -103,6 +103,30 @@ def test_prefilter_without_diagonal_scoring_runs_the_host_matcher(
         assert got[k].split(b"\t")[0] == str(k).encode()
 
 
+@pytest.mark.parametrize("extra", [
+    ["--diag-score", "0"],
+    ["--diag-score", "0", "-s", "1", "--comp-bias-corr", "0",
+     "--min-ungapped-score", "0", "--max-seqs", "20"],
+], ids=["default", "cascaded-step-0"])
+def test_host_matcher_matches_the_jax_package(tmp_path, on_cpu, extra):
+    """--diag-score 0 (the cascaded clustering's first round) runs the host
+    matcher, which enumerates a query's windows in one batch: its entries
+    equal the JAX package's prefilter on the same inputs."""
+    from mmseqs2_tpu.params import Params
+    from mmseqs2_tpu.registry import get_command
+    sub = subset_db(tmp_path, range(N_SUBSET))
+    prefilter_kmer.reset_stats()
+    run(["prefilter", sub, GOLDEN / "qdb", tmp_path / "port", *extra])
+    assert prefilter_kmer.STATS["flushes"] == 0
+    cmd = get_command("prefilter")
+    par = Params().parse([sub, str(GOLDEN / "qdb"), str(tmp_path / "jax"),
+                          *extra], cmd, cmd.min_db, cmd.max_db)
+    assert cmd.load()(par, cmd) == 0
+    got = entries_by_key(tmp_path / "port")
+    assert got == entries_by_key(tmp_path / "jax")
+    assert sum(v.count(b"\n") for v in got.values()) > N_SUBSET
+
+
 def test_convertalis_parity(tmp_path, on_cpu):
     out = tmp_path / "aln.m8"
     run(["convertalis", GOLDEN / "qdb", GOLDEN / "qdb", GOLDEN / "aln", out])
@@ -193,6 +217,29 @@ def test_search_prefilter_mode_runs_ungappedprefilter(tmp_path, on_cpu,
     assert sorted(got) == [0, 1, 2] and all(got.values())
 
 
+def test_search_alignment_mode_4_runs_rescorediagonal(tmp_path, on_cpu):
+    """search --alignment-mode 4 puts `rescorediagonal --rescore-mode 2` in
+    align's place, as the JAX package's search does: the alignment DB equals
+    the JAX search's on a toy subset."""
+    from mmseqs2_tpu.params import Params
+    from mmseqs2_tpu.registry import get_command
+    qsub = subset_db(tmp_path, range(4))
+    tsub = subset_db(tmp_path, range(40), "tsub")
+    extra = ["--alignment-mode", "4"]
+    run(["search", qsub, tsub, tmp_path / "aln", tmp_path / "tmp", *extra])
+    cmd = get_command("search")
+    par = Params().parse([qsub, tsub, str(tmp_path / "jaln"),
+                          str(tmp_path / "jtmp"), *extra], cmd, cmd.min_db,
+                         cmd.max_db)
+    assert cmd.load()(par, cmd) == 0
+    got = entries_by_key(tmp_path / "aln")
+    assert got == entries_by_key(tmp_path / "jaln")
+    assert sorted(got) == [0, 1, 2, 3] and all(got.values())
+    # rescore-mode 2 writes alignment records (ten columns), not hit lines
+    assert all(len(line.split(b"\t")) == 10
+               for v in got.values() for line in v.splitlines())
+
+
 SUBPROCESS_RUN = """
 import sys
 from mmseqs2_tpu_torch.cli import main
@@ -245,8 +292,6 @@ UNPORTED = {
                                   "--num-iterations", "2"],
     "search --lca-search": ["search", QDB, QDB, "{out}", "{tmp}",
                             "--lca-search", "1"],
-    "search --alignment-mode 4": ["search", QDB, QDB, "{out}", "{tmp}",
-                                  "--alignment-mode", "4"],
     "search --prefilter-mode 3": ["search", QDB, QDB, "{out}", "{tmp}",
                                   "--prefilter-mode", "3"],
     "ungappedprefilter nucleotide": ["ungappedprefilter", NUCL, NUCL,
@@ -293,9 +338,17 @@ def test_unported_branch_exits_1(tmp_path):
     assert "not yet ported (see ROADMAP.md)" in r.stderr
     assert not (tmp_path / "pref.dbtype").exists()
     r = subprocess.run(
-        [sys.executable, "-m", "mmseqs2_tpu_torch", "cluster", "a", "b", "c"],
+        [sys.executable, "-m", "mmseqs2_tpu_torch", "clusterupdate", "a", "b",
+         "c", "d", "e", "f"],
         env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 1 and "not yet ported" in r.stderr
+    r = subprocess.run(
+        [sys.executable, "-m", "mmseqs2_tpu_torch", "cluster", str(QDB),
+         str(tmp_path / "clu"), str(tmp_path / "tmp"), "--cluster-reassign",
+         "1"], env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 1
+    assert "not yet ported (see ROADMAP.md)" in r.stderr
+    assert not (tmp_path / "tmp").exists()
 
 
 def test_score_table_cache_is_the_ports_own(tmp_path, monkeypatch):
@@ -316,3 +369,32 @@ def test_score_table_cache_is_the_ports_own(tmp_path, monkeypatch):
     monkeypatch.setenv("MMSEQS2_TPU_TORCH_CACHE", "off")
     SubKmerScores(seed.sub_matrix, 20, 2).attach_disk_cache()
     assert len(list((tmp_path / "cache" / "mmseqs2_tpu_torch").iterdir())) == 3
+
+
+def test_batched_generator_matches_the_jax_per_window_generator():
+    """The port enumerates a query's similar k-mers for all windows in one
+    batch (KmerGenerator.generate_all, which the host matcher and the
+    device stage-0 both use); window by window it equals the JAX package's
+    per-window enumeration (the reference's generateKmerList order), at
+    low and high thresholds and over windows of repeated letters."""
+    import numpy as np
+    from mmseqs2_tpu.prefilter import kmer_generator as jkg
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    from mmseqs2_tpu_torch.prefilter import kmer_generator as kg
+    seed = get_submat("VTML80.out", 8.0, -0.2)
+    alpha = seed.alphabet_size - 1
+    rng = np.random.default_rng(11)
+    for k in (6, 7):
+        tables = [kg.SubKmerScores(seed.sub_matrix, alpha, n) for n in (3, 2)]
+        jtables = [jkg.SubKmerScores(seed.sub_matrix, alpha, n)
+                   for n in (3, 2)]
+        gen = kg.KmerGenerator(k, alpha, *tables)
+        jgen = jkg.KmerGenerator(k, alpha, *jtables)
+        windows = rng.integers(0, alpha, size=(16, k)).astype(np.int64)
+        windows[:3] = rng.integers(0, alpha, size=(3, 1))   # one letter
+        thr = rng.integers(70, 150, size=16).astype(np.int64)
+        codes, win_of = gen.generate_all(windows, thr)
+        assert len(codes) > 1000 and len(set(win_of.tolist())) > 8
+        for w in range(len(windows)):
+            want = np.asarray(jgen.generate(windows[w], int(thr[w])))
+            assert np.array_equal(codes[win_of == w], want), (k, w)
