@@ -28,12 +28,21 @@ caught. Phases, each printing lines before the last:
      again in the int32 form and with the lengths off (sw_multi: the Lq
      512 forward and reverse shapes; and the strip-mined SW shape in the
      int32 form); sw_score must equal sw_single's score; each row gives the
-     form and the cells needed, padded and computed;
+     form and the cells needed, padded and computed. Profile queries:
+     sw_multi with the golden it_profile_0's PSSM profiles (Lq 512, 1,024
+     and 2,048, both passes, the Lq 512 shapes also in the int32 form), and
+     diag_rescore_profile (the profile form of the rescore) at the profile
+     prefilter's shapes (2^10 to 2^17 candidates, a flush's 2^21 slots,
+     edge diagonals, all-negative, stale candidates past the count, a moved
+     store, windows at both ends of the store; each without and with the
+     count), its rows made from it_profile_0;
   4. golden parity: the port's `align` on the 500-query toy set equals the
      reference MMseqs2 goldens (tests/golden/toy, tests/golden/alt): default
-     and non-default scoring, --realign, --alt-ali, --corr-score-weight;
-     the port's `prefilter` of the toy set against itself equals the goldens
-     at the default sensitivity and at -s 5.7 on all 500 queries, and
+     and non-default scoring, --alt-ali, --corr-score-weight (--realign is
+     the iterative search's first align, below);
+     the port's `prefilter` of the toy set against itself equals the golden
+     at the default sensitivity on all 500 queries (at -s 5.7: the
+     iterative search's first prefilter, below), and
      `easy-search QUERY.fasta QUERY.fasta` equals golden_self.m8;
      `ungappedprefilter` of the toy set against itself equals the golden
      `upref` on all 500 queries, `makepaddedseqdb` the golden padded DB
@@ -42,15 +51,29 @@ caught. Phases, each printing lines before the last:
      bytes of the runs without a server, and the server launched both
      score-only kernels (gapless_score, sw_score); `search --prefilter-mode
      1` runs
-     and its first queries' entries equal a run with the CPU requested;
+     and its first queries' entries equal a run with the CPU requested
+     (run beside it);
      clustering: `clust` (3 modes), `rescorediagonal` (3 modes),
      `kmermatcher` (v1 and three v2 flag sets), `linclust` and `cluster`
      with --linclust-version 1 equal their goldens (clu*, resc*, kmpref,
      km_*, linclu, casclu), and `prefilter` of the toy set against a
-     `createindex` index equals the run without one. Phase 8's CPU side
-     runs in a subprocess during this phase, which is correctness only:
-     none of its seconds is a metric, and the phase ends by waiting for
-     the subprocess, so that nothing measured runs beside it;
+     `createindex` index equals the run without one. The profile search:
+     `result2profile` (profdb), `search qdb qdb --num-iterations 3` with
+     each step's output against its golden (it_pref_0, it_aln_0,
+     it_profile_0, it_pref_tmp_1, it_pref_1, it_aln_tmp_1, it3_aln_1,
+     it3_profile_1), its
+     result against italn3 and its second iteration's merged result (the
+     2-iteration search's steps) against italn, byte for byte; `search`
+     against profile targets (tprofile/refout) and `search
+     --exhaustive-search` (sliced/refout, refout2); `search
+     --num-iterations 2` of the toy's first 25 queries against its first
+     250 equal on the card and the CPU, byte for byte. The CPU sides of
+     phases 6, 7, 8 (started with phase 3) and 9 run in subprocesses
+     during this phase, which is correctness only: none of its seconds is
+     a metric, and the phase ends by waiting for them, so that nothing
+     measured after it runs beside them
+     (the data of phases 6, 7 and 9, phase 5's, are made at its start
+     from a copy of the generator as phase 5 finds it);
   5. real size, align only: `createdb` + `align -a` on N_TARGETS
      SwissProt-like targets and 1,000 queries with 300 synthetic prefilter
      candidates each (300,000 pairs), data made from a seed; launch counts
@@ -65,7 +88,8 @@ caught. Phases, each printing lines before the last:
      wall time, queries/s, the split of the wall, the queries that took the
      host-oracle route, the hits, sw_multi's launches by form and its
      computed cells against those needed; the first 32 queries' lines equal
-     a run with the CPU requested; then the prefilter step once more under
+     phase 4's run of them with the CPU requested; then the prefilter step
+     once more under
      torch.profiler, with diag_rescore's launches and device time from the
      trace and, recorded in that run, their slots, valid counts and the
      distribution of their window lengths. Beside the main path, not in
@@ -81,8 +105,8 @@ caught. Phases, each printing lines before the last:
      the split of the wall (upload, kernels by CUDA events, waiting for
      read-backs, host filter and write), launches (by kernel form) and
      read-backs per query, cells needed, padded and computed;
-     the first 32 queries held against a run with the CPU requested on the
-     first 500 targets (a cut for time: every hit of the card's run on
+     the first 32 queries held against phase 4's run with the CPU requested
+     on the first 500 targets (a cut for time: every hit of the card's run on
      those targets must be the CPU's, and every CPU hit that ranks inside
      the card's list must be in it); once more under torch.profiler for the
      busy and idle shares; then the same through a resident `gpuserver` on
@@ -90,24 +114,41 @@ caught. Phases, each printing lines before the last:
      local run on that DB), and `gappedprefilter` of the 1,000 queries
      (wall, kernels, launches by form, cells needed and computed; once
      more under torch.profiler), no gapped hit below its gapless score,
-     and a sub-DB run equal on the card and the CPU;
-  8. clustering at real size, on phase 5's targets: `easy-linclust` of all
-     of them with the defaults, and `easy-cluster` of the first 10,000 (a
-     cut for time) at MMseqs2's README parameters (--min-seq-id 0.5 -c 0.8
+     and a sub-DB run equal on the card and the CPU (phase 4's run);
+  8. clustering at real size, on phase 5's targets: `easy-linclust` of the
+     first 25,000 with the defaults, and `easy-cluster` of the first 5,000
+     (cuts for time) at MMseqs2's README parameters (--min-seq-id 0.5 -c 0.8
      --cov-mode 1), every kernel's count set to 0 just before each and read
      just after: wall, sequences/s, clusters, the wall by step,
      align2clust's gapped calls with their sw_multi launches (by form) and
      read-backs, and each round's prefilter route (card or host), index
      seconds and launches; each output a full assignment; then both
      commands on a check set made from its own generator, 2,000 sequences
-     of the same recipe and 200 planted near-duplicates of them (2%
-     substitutions, two thirds of them with one indel of 1-3 letters, so
-     that align2clust accepts pairs through its gapped fallback and
-     through its ungapped rescore, both checked), whose three files equal
-     those of phase 4's CPU subprocess; then the card's easy-cluster of the
-     check set once more under torch.profiler;
-  9. one JSON line listing every kernel, with its launches on the
-     clustering path beside those of the path that launches it;
+     of the same recipe (a cut for time) and 200 planted near-duplicates
+     of them (2% substitutions, two thirds of them with one indel of 1-3
+     letters, so that align2clust accepts pairs through its gapped
+     fallback and through its ungapped rescore, both checked), whose
+     three files equal
+     those of the CPU subprocess started with phase 3; the card's
+     easy-cluster of the check set runs under torch.profiler;
+  9. the iterative profile search at real size: `search --num-iterations
+     3` of the first 100 of phase 5's 1,000 queries (a cut for time: the
+     index builds, three of them, do not shrink with the queries) against
+     its 50,000 targets (phase 6's
+     target DB, no prebuilt index), every kernel's count set to 0 just
+     before and read just after: wall, queries/s, and per iteration the
+     hits, the prefilter's seconds (index build, the profile k-mer
+     enumeration, dispatch, wait), flushes, diag_rescore launches by form,
+     profile bytes uploaded and host-oracle queries, align's seconds with
+     sw_multi's launches by form (each int32 launch with the bound that
+     ruled out int16) and read-backs, and result2profile's, subtractdbs'
+     and mergedbs' seconds; iteration 1's profile-query prefilter and
+     align under torch.profiler in that run (their seconds include what
+     tracing costs); the first 16 queries' entries equal phase 4's CPU
+     subprocess's (by query name);
+then one JSON line listing every kernel (eight entry points), with its
+launches on the clustering and iterative paths beside those of the path
+that launches it;
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA card or outside a checkout of the repository.
 """
@@ -258,12 +299,14 @@ PBACK = PBACK / PBACK.sum()
 
 
 def sw_case(rng, submat, nq, lq, lt, lanes, reverse, negative=False,
-            big=False, mut_rate=0.3):
+            big=False, mut_rate=0.3, pssm=None):
     """Inputs of one sw_multi launch as the align stage builds them: nq
     query profiles of the Lq bucket, lanes targets of the Lt bucket (half of
     them fragments of their query with mut_rate of their letters mutated),
     pad letter 31. The reverse pass takes the reversed profile (pad rows
-    first) and qoff = lq - 1 - qend.
+    first) and qoff = lq - 1 - qend. With `pssm` (a list of (profile,
+    letters) of profile queries, Aligner.init_profile_query's columns, each
+    in this Lq bucket) the queries are nq of those instead of sequences.
     Also returns what the aligner passes with them: each profile's real
     length (the forward pass's q_lens), each lane's window end and target
     length; and the cells the launch needs: per lane, its window rows
@@ -273,7 +316,14 @@ def sw_case(rng, submat, nq, lq, lt, lanes, reverse, negative=False,
     mat = submat.sub_matrix.astype(np.int32)
     aa_idx = np.array([submat.aa2num[c] for c in AA])
     profs, qseqs = [], []
-    for _ in range(nq):
+    picks = (rng.choice(len(pssm), size=nq, replace=len(pssm) < nq)
+             if pssm is not None else [None] * nq)
+    for pick in picks:
+        if pick is not None:
+            prof, q = pssm[pick]
+            profs.append(prof[:, ::-1] if reverse else prof)
+            qseqs.append(q)
+            continue
         n = int(rng.integers(lq // 2 + 1, lq + 1))
         q = aa_idx[rng.choice(20, size=n, p=PBACK)]
         prof = make_query_profile(q, mat, None, pad_len=lq, alpha_pad=32)
@@ -346,15 +396,31 @@ def phase_kernels(rng):
                              (1024, 1024), (2048, 2048), (256, 512),
                              (512, 256))
               for rev in (False, True)]
+    # profile queries (blastpgp's align of iterations >= 1): the golden
+    # it_profile_0's PSSM profiles (pssm/4, the X row 0, pad rows -2^20,
+    # Aligner.init_profile_query's columns) in their length buckets, both
+    # passes; the Lq 512 shapes also run in the int32 form (as every Lq 512
+    # shape does), and the Lq 2048 bucket's profiles reach it by their own
+    # range. From their own generator, as the one-lane cases.
+    rng_pssm = np.random.default_rng(SEED + 11)
+    pssm = pssm_profiles(submat)
+    cases += [dict(nq=nq, lq=lq, lt=lt, lanes=lanes, reverse=rev, go=11,
+                   ge=1, pssm=True)
+              for nq, lq, lt, lanes in ((16, 512, 512, 4096),
+                                        (16, 1024, 1024, 4096),
+                                        (8, 2048, 1024, 2048))
+              for rev in (False, True)]
     log("kernels vs plain versions: tolerance 0 (integer outputs, exact "
         "equality); ms = median of CUDA-event timings")
     rows = []
     for c in cases:
+        src = (rng_pssm if c.get("pssm") else rng_one if c.get("one_lane")
+               else rng)
         pf, tb, qsel, qoff, q_lens, ends, tlen, cells = sw_case(
-            rng_one if c.get("one_lane") else rng, submat, c["nq"], c["lq"],
-            c["lt"], c["lanes"], c["reverse"],
+            src, submat, c["nq"], c["lq"], c["lt"], c["lanes"], c["reverse"],
             c.get("negative", False), c.get("big", False),
-            0.02 if c.get("one_lane") else 0.3)
+            0.02 if c.get("one_lane") else 0.3,
+            pssm[c["lq"]] if c.get("pssm") else None)
         args = [torch.from_numpy(a).cuda() for a in (pf, tb, qsel)]
         qoff_d = torch.from_numpy(qoff).cuda()
         go, ge = c["go"], c["ge"]
@@ -362,7 +428,8 @@ def phase_kernels(rng):
                 f"{'reverse' if c['reverse'] else 'forward'} "
                 f"go/ge={go}/{ge}"
                 + (" all-negative" if c.get("negative") else "")
-                + (" bound>TPU-pack-limit" if c.get("big") else ""))
+                + (" bound>TPU-pack-limit" if c.get("big") else "")
+                + (" pssm" if c.get("pssm") else ""))
         # the lengths as the aligner passes them: the forward pass q_lens
         # per profile and no offset, the reverse pass the offset alone; the
         # Lq 512 forward and reverse shapes run twice more, in the int32
@@ -429,7 +496,25 @@ def phase_kernels(rng):
                 raise AssertionError(f"sw_multi differs from its plain "
                                      f"version: {vname} (max abs err {err})")
             rows.append((cv, row))
+    forms = {(r["form"], c["reverse"]) for c, r in rows if c.get("pssm")}
+    if len(forms) != 4:
+        raise AssertionError(f"the pssm cases ran {sorted(forms)}, not both "
+                             f"forms in both passes")
     return rows
+
+
+def pssm_profiles(submat):
+    """The golden it_profile_0's profiles as the aligner's profile queries
+    see them (Aligner.init_profile_query: (32, Lq bucket) int32 columns and
+    the query letters), by Lq bucket."""
+    from mmseqs2_tpu_torch.align.aligner import Aligner
+    aligner = Aligner(submat, 11, 1, None, device="cpu")
+    out = {}
+    for p in golden_profiles():
+        ctx = aligner.init_profile_query(p)
+        out.setdefault(ctx.profile.shape[1], []).append(
+            (ctx.profile, ctx.q_num))
+    return out
 
 
 def single_case(rng, submat, lq, lt, lanes, kind="normal", n=None):
@@ -780,20 +865,29 @@ def rescore_bound_ms(args, cells, n_valid=None):
     the bound as the first version of this phase counted it, 17 B for every
     slot and 12 B for every slot with cvalid True, kept beside the other so
     that shares of it stay comparable across versions of the kernel."""
-    slots = len(args[0])
-    n_t = len(args[6])
     shared = (min(cells, args[4].nbytes) + args[7].nbytes + args[8].nbytes
               + args[9].nbytes + args[10].nbytes)
+    ms, by = rescore_bound(args, cells, shared, n_valid)
+    all_s = (shared + len(args[0]) * 17
+             + min(int(args[3].sum()), len(args[6])) * 12) / HBM_BYTES_PER_S
+    ops_s = cells * RESCORE_OPS_PER_CELL / INT32_OPS_PER_S
+    return ms, by, max(ops_s, all_s) * 1e3
+
+
+def rescore_bound(args, cells, shared, n_valid):
+    """(ms, bound_by) of a rescore launch of either form: RESCORE_OPS_PER_
+    CELL operations a cell, or `shared` bytes (the inputs every candidate
+    shares) plus 12 B of target table per candidate and what each slot
+    needs, whichever takes longer."""
+    slots = len(args[0])
     upto = slots if n_valid is None else n_valid
     cand = int(args[3][:upto].sum())
     per_slot = cand * 17 + (upto - cand) * 5 + (slots - upto) * 4
     ops_s = cells * RESCORE_OPS_PER_CELL / INT32_OPS_PER_S
-    bytes_s = (shared + per_slot + min(cand, n_t) * 12) / HBM_BYTES_PER_S
-    all_s = (shared + slots * 17 + min(int(args[3].sum()), n_t) * 12
-             ) / HBM_BYTES_PER_S
+    bytes_s = (shared + per_slot + min(cand, len(args[6])) * 12
+               ) / HBM_BYTES_PER_S
     return (max(ops_s, bytes_s) * 1e3,
-            "operations" if ops_s >= bytes_s else "bytes",
-            max(ops_s, all_s) * 1e3)
+            "operations" if ops_s >= bytes_s else "bytes")
 
 
 RESCORE_CASES = [
@@ -889,6 +983,166 @@ def phase_rescore_kernel(rng, counts=(False, True)):
     return rows
 
 
+# -- the profile form of the rescore (B4') ------------------------------------
+
+def golden_profiles():
+    """The PSSM profiles of the golden it_profile_0 (the reference's
+    iteration-0 profiles of the 500 toy queries), parsed."""
+    from mmseqs2_tpu_torch.db.reader import DBReader
+    from mmseqs2_tpu_torch.profile.io import parse_profile
+    with DBReader(str(GOLDEN / "it_profile_0")) as r:
+        return [parse_profile(r.get_data(i)) for i in range(r.size)]
+
+
+def rescore_profile_store(rng, n_t=N_TARGETS, n_q=128):
+    """A target store at the prefilter's shapes (as rescore_store) and a
+    batch of n_q profile queries: the golden profiles of at most 1,500
+    positions, their query letters, and each query's rescore profile as
+    the profile prefilter builds it (pssm/4 truncated toward zero on the 20
+    amino-acid columns, X at 0), packed into (n_q, Lq, 32) int8 rows.
+    Every fourth query's letters, 20% mutated, are planted in a target
+    (origin), so that its true diagonal scores high."""
+    from mmseqs2_tpu_torch.commands.prefilter_kmer import profile_query
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    from mmseqs2_tpu_torch.ops.rescore import PROFILE_WIDTH, profile_rows
+    from mmseqs2_tpu_torch.prefilter.kmer_index import pattern_offsets
+    m = get_submat("blosum62.out", 2.0, -0.2).sub_matrix.astype(np.int32)
+    alpha = m.shape[0]
+    profs = [p for p in golden_profiles() if 0 < p.length <= 1500][:n_q]
+    t_len = lengths(rng, n_t).astype(np.int32)
+    t_off = np.concatenate([[0], np.cumsum(t_len[:-1], dtype=np.int64)])
+    t_cat = rng.choice(20, size=int(t_len.sum()), p=PBACK).astype(np.int8)
+    q_len = np.array([p.length for p in profs], np.int32)
+    lq = int(q_len.max())
+    q_pad = np.full((n_q, lq), alpha - 1, np.uint8)
+    prof = np.zeros((n_q, lq, PROFILE_WIDTH), np.int8)
+    origin = np.full((n_q, 2), -1, np.int64)
+    offsets, _ = pattern_offsets(6, True, "")
+    for b, p in enumerate(profs):
+        n = int(q_len[b])
+        q_pad[b, :n] = p.query_num
+        prof[b, :n] = profile_rows(profile_query(p, 6, alpha - 1,
+                                                 offsets)[1])
+        if b % 4 == 0:
+            t = int(rng.integers(n_t))
+            m_len = min(n, int(t_len[t]))
+            o = int(rng.integers(0, int(t_len[t]) - m_len + 1))
+            frag = q_pad[b, :m_len].astype(np.int8)
+            mut = rng.random(m_len) < 0.2
+            frag[mut] = rng.choice(20, size=int(mut.sum()), p=PBACK)
+            t_cat[t_off[t] + o:t_off[t] + o + m_len] = frag
+            origin[b] = (t, o)
+    return dict(t_cat=t_cat, t_off=t_off, t_len=t_len, q_pad=q_pad,
+                corr=np.zeros((n_q, lq), np.int8), submat=m, q_len=q_len,
+                origin=origin, prof=prof)
+
+
+def rescore_profile_case(rng, st, ends=False, **c):
+    """rescore_case's candidates in the profile form's argument order
+    (cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, prof, q_len): `negative`
+    scores every cell below 0; `ends` puts windows on the first and the
+    last target of the store, at both ends of each. Returns the arguments
+    and the cells of the valid slots before n_cand."""
+    args, cells = rescore_case(rng, st, **c)
+    prof = st["prof"]
+    if c.get("negative"):
+        prof = (-1 - np.abs(prof.astype(np.int16))).astype(np.int8)
+    pargs = args[:7] + [prof, st["q_len"]]
+    if ends:
+        last = len(st["t_len"]) - 1
+        tl0, tl1 = int(st["t_len"][0]), int(st["t_len"][last])
+        ql0, ql1 = int(st["q_len"][0]), int(st["q_len"][1])
+        for k, (q, t, d) in enumerate(((0, 0, 0), (0, 0, 1 - tl0),
+                                       (0, 0, ql0 - 1), (1, last, 0),
+                                       (1, last, 1 - tl1),
+                                       (1, last, ql1 - 1))):
+            pargs[0][k], pargs[1][k], pargs[2][k] = q, t, d & 0xFFFF
+            pargs[3][k] = True
+        cells = valid_cells(pargs[:7] + [None, None, None, st["q_len"]],
+                            c["n_cand"])
+    return pargs, cells
+
+
+def rescore_profile_bound_ms(args, cells, n_valid=None):
+    """Least time of one diag_rescore_profile launch, counted as
+    rescore_bound_ms counts the letters form's: RESCORE_OPS_PER_CELL int32
+    operations a cell, or the bytes, whichever takes longer. The bytes,
+    each once: the target bytes the windows touch, the profile rows they
+    read (32 B a cell, at most the profile tensor), the query lengths, 12 B
+    of target table per candidate, and per slot what the call needs of it
+    (as for the letters form)."""
+    shared = (min(cells, args[4].nbytes) + min(32 * cells, args[7].nbytes)
+              + args[8].nbytes)
+    return rescore_bound(args, cells, shared, n_valid)
+
+
+RESCORE_PROFILE_CASES = [
+    dict(n_cand=1 << 10), dict(n_cand=1 << 13), dict(n_cand=1 << 15),
+    dict(n_cand=1 << 17),
+    dict(n_cand=1 << 17, slots=1 << 21),          # a flush's own shape
+    dict(n_cand=1 << 12, edge=True),
+    dict(n_cand=1 << 12, negative=True),
+    dict(n_cand=1 << 15, slots=1 << 17, stale=1 << 15),
+    dict(n_cand=1 << 15, shift=7),
+    dict(n_cand=1 << 12, ends=True)]
+
+
+def phase_rescore_profile_kernel():
+    """diag_rescore_profile (B4') against its plain version at the profile
+    prefilter's shapes, each case without and with the valid count: 2^10
+    to 2^17 candidates, a flush's 2^21 slots, edge diagonals, all-negative
+    scores, stale candidates past the count, a moved target store and
+    windows at both ends of the store; the profile rows are the golden
+    it_profile_0's, so their range is real. From its own generator, so
+    that the later phases' data stay those of the earlier runs."""
+    import torch
+    from mmseqs2_tpu_torch.ops import rescore
+    rng = np.random.default_rng(SEED + 12)
+    st = rescore_profile_store(rng)
+    rows = []
+    for c in RESCORE_PROFILE_CASES:
+        np_args, cells = rescore_profile_case(rng, st, **c)
+        args = [torch.from_numpy(a).cuda() for a in np_args]
+        n_valid = torch.tensor(c["n_cand"], dtype=torch.int32, device="cuda")
+        for counted in (False, True):
+            kw = dict(n_valid=n_valid) if counted else {}
+            got = rescore.diag_rescore_profile(*args, **kw)
+            want = rescore.diag_rescore_profile_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            equal = torch.equal(got, want)
+            if c.get("negative"):
+                equal = equal and bool((got == 0).all())
+            if counted and c.get("stale"):
+                equal = equal and not bool(got[c["n_cand"]:].any())
+            ms = device_ms(lambda: rescore.diag_rescore_profile(*args, **kw),
+                           9)
+            plain_ms = time_ms(
+                lambda: rescore.diag_rescore_profile_plain(*args, **kw), 2)
+            run_cells = cells
+            if c.get("stale") and not counted:
+                run_cells = valid_cells(np_args[:7] + [None, None, None,
+                                                       np_args[8]])
+            bound, by = rescore_profile_bound_ms(
+                np_args, run_cells, c["n_cand"] if counted else None)
+            name = (rescore_case_name(st, c, counted)
+                    + (" store-ends" if c.get("ends") else "")
+                    + " profile")
+            row = dict(case=name, equal=equal, max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, cells=run_cells,
+                       gcells_per_s=run_cells / ms / 1e6, bound_ms=bound,
+                       bound_by=by, bound_share=bound / ms,
+                       max_score=int(got.max()),
+                       saturated=int((got > 255).sum()))
+            log("rescore-profile-case " + json.dumps(row))
+            if not equal:
+                raise AssertionError(f"diag_rescore_profile differs from its "
+                                     f"plain version: {name} (max abs err "
+                                     f"{err})")
+            rows.append((dict(c, counted=counted), row))
+    return rows
+
+
 # -- CLI helpers -------------------------------------------------------------------
 
 def run_cli(args, cpu=False):
@@ -921,9 +1175,6 @@ def phase_golden():
             ("blosum62 13/2", (qdb, qdb, pref),
              ["--sub-mat", "blosum62.out", "--gap-open", "13",
               "--gap-extend", "2"], GOLDEN / "aln_blosum62_13_2"),
-            ("realign", (qdb, qdb, GOLDEN / "it_pref_0"),
-             ["-a", "1", "--realign", "1", "-e", "0.001"],
-             GOLDEN / "it_aln_0"),
             ("alt-ali 2", (alt / "qd", alt / "td", alt / "pf"),
              ["-a", "--alt-ali", "2", "-e", "1e5"], alt / "refalt2"),
             ("corr-score-weight 0.1", (alt / "q8", qdb, alt / "prefsub"),
@@ -967,14 +1218,13 @@ def no_sync_in_dispatch():
 def phase_golden_search():
     """The new commands on the card against the reference goldens: the
     k-mer prefilter of all 500 toy queries against themselves at the
-    default sensitivity (`pref`) and at -s 5.7 (`it_pref_0`), key by key,
+    default sensitivity (`pref`), key by key (at -s 5.7, `it_pref_0`, it
+    is phase_golden_profile's iterative search's first step),
     and easy-search of the toy FASTA against itself (`golden_self.m8`, as
     sorted lines: the output follows the result DB's data-file order)."""
     from mmseqs2_tpu_torch.commands import prefilter_kmer
     qdb = GOLDEN / "qdb"
-    for name, extra, gold in (("default", [], GOLDEN / "pref"),
-                              ("-s 5.7", ["-s", "5.7"],
-                               GOLDEN / "it_pref_0")):
+    for name, extra, gold in (("default", [], GOLDEN / "pref"),):
         out = WORK / f"golden_{gold.name}"
         prefilter_kmer.reset_stats()
         t0 = time.perf_counter()
@@ -1060,9 +1310,16 @@ def gpuserver(pad):
 WIDE = ["--min-ungapped-score", "-1", "-e", "1e30"]
 
 
-def phase_golden_exhaustive(rng):
-    """The exhaustive prefilter path on the toy set, on the card. Returns
-    the server's launches for the two commands sent through it."""
+def server_profile(rng):
+    """phase_golden_exhaustive's seeded random profile (scores above 0
+    against all-X targets), drawn from the main generator."""
+    return rng.integers(-4, 8, size=(32, 256)).astype(np.int32)
+
+
+def phase_golden_exhaustive(prof):
+    """The exhaustive prefilter path on the toy set, on the card, with
+    `prof` (server_profile) as the server's random profile. Returns the
+    server's launches for the two commands sent through it."""
     from mmseqs2_tpu_torch.commands import prefilter_cmd
     from mmseqs2_tpu_torch.commands.common import EncodedDB, open_seq_db
     from mmseqs2_tpu_torch.data.submat import get_submat
@@ -1102,7 +1359,6 @@ def phase_golden_exhaustive(rng):
     # random profile (scores above 0 against all-X targets) in both modes,
     # against the same work done here
     cmds = ("ungappedprefilter", "gappedprefilter")
-    prof = rng.integers(-4, 8, size=(32, 256)).astype(np.int32)
     q100 = sub_db(qdb, 100, WORK / "toy_q100")
     with gpuserver(pad) as startup_s:
         t0 = time.perf_counter()
@@ -1144,28 +1400,30 @@ def phase_golden_exhaustive(rng):
         raise AssertionError("the server launched no gapless_score or no "
                              "sw_score kernel")
 
-    # search --prefilter-mode 1: ungappedprefilter in the prefilter's place
+    # search --prefilter-mode 1: ungappedprefilter in the prefilter's place;
+    # its first queries with the CPU requested run beside it
     n_check = 2
-    t0 = time.perf_counter()
-    run_cli(["search", qdb, qdb, WORK / "toy_search1",
-             WORK / "toy_search1_tmp", "--prefilter-mode", "1"])
-    wall = time.perf_counter() - t0
-    got = entries(WORK / "toy_search1")
     q_chk = sub_db(qdb, n_check, WORK / "toy_q_chk")
-    t0 = time.perf_counter()
+    side = {}
     # (the sub-DB has another path than the target DB: --add-self-matches
     # keeps the self hit on scoreIdentical's route, as the same path does)
-    run_cli(["search", q_chk, qdb, WORK / "toy_search1_cpu",
-             WORK / "toy_search1_cpu_tmp", "--prefilter-mode", "1",
-             "--add-self-matches", "1"], cpu=True)
+    with cli_cpu_side("search --prefilter-mode 1", [[
+            "search", q_chk, qdb, WORK / "toy_search1_cpu",
+            WORK / "toy_search1_cpu_tmp", "--prefilter-mode", "1",
+            "--add-self-matches", "1"]], side):
+        t0 = time.perf_counter()
+        run_cli(["search", qdb, qdb, WORK / "toy_search1",
+                 WORK / "toy_search1_tmp", "--prefilter-mode", "1"])
+        wall = time.perf_counter() - t0
+    got = entries(WORK / "toy_search1")
     cpu = entries(WORK / "toy_search1_cpu")
     bad = [k for k in cpu if cpu[k] != got.get(k)]
     log(f"search --prefilter-mode 1: {len(got)} queries, "
         f"{sum(v.count(b'\n') for v in got.values())} alignments, "
         f"{wall:.2f} s; first {n_check} queries "
         f"({sum(v.count(b'\n') for v in cpu.values())} alignments) equal a "
-        f"run with the CPU requested: {len(bad)} differ, CPU run "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"run with the CPU requested: {len(bad)} differ, CPU side "
+        f"{side['cpu_s']:.2f} s")
     if bad or len(cpu) != n_check or len(got) != 500 or not all(cpu.values()):
         raise AssertionError(f"search --prefilter-mode 1 differs on the card "
                              f"and the CPU for queries {bad[:10]}")
@@ -1239,6 +1497,153 @@ def phase_golden_cluster():
     if bad or len(got) != len(want):
         raise AssertionError(f"prefilter against the prebuilt index differs "
                              f"for queries {bad[:10]}")
+
+
+def phase_golden_profile(n_queries=25, n_targets=250):
+    """golden_profile_runs, and beside them, with the CPU requested, `search
+    --num-iterations 2` of the toy's first n_queries against its first
+    n_targets (the last iteration's own branch: its align at -e, its merge
+    writing the result); then the same search on the card, whose data and
+    index must equal the CPU's byte for byte."""
+    q = sub_db(GOLDEN / "qdb", n_queries, WORK / "it2_q")
+    t = sub_db(GOLDEN / "qdb", n_targets, WORK / "it2_t")
+    side = {}
+    with cli_cpu_side("search --num-iterations 2", [[
+            "search", q, t, WORK / "it2_cpu", WORK / "it2_cpu_tmp",
+            "--num-iterations", 2]], side):
+        golden_profile_runs()
+        wrappers = kernel_wrappers()
+        before = {n: w.launches for n, w in wrappers.items()}
+        t0 = time.perf_counter()
+        run_cli(["search", q, t, WORK / "it2_card", WORK / "it2_card_tmp",
+                 "--num-iterations", 2])
+        wall = time.perf_counter() - t0
+    differ = [suf for suf in ("", ".index", ".dbtype")
+              if pathlib.Path(f"{WORK / 'it2_card'}{suf}").read_bytes()
+              != pathlib.Path(f"{WORK / 'it2_cpu'}{suf}").read_bytes()]
+    launched = {n: w.launches - before[n] for n, w in wrappers.items()
+                if w.launches != before[n]}
+    n_hits = pathlib.Path(WORK / "it2_cpu").read_bytes().count(b"\n")
+    log(f"search --num-iterations 2 of the toy's first {n_queries} against "
+        f"its first {n_targets}: {n_hits} hits, card and CPU "
+        f"{'differ in ' + str(differ) if differ else 'equal byte for byte'}"
+        f", card {wall:.2f} s, CPU side {side['cpu_s']:.2f} s, launches "
+        f"{json.dumps(launched)}")
+    if differ or n_hits == 0 or not launched.get("diag_rescore_profile"):
+        raise AssertionError(f"search --num-iterations 2 on the card: "
+                             f"{differ or 'no hits or no profile rescore'}")
+
+
+def golden_profile_runs():
+    """The profile search on the card against the reference goldens:
+    `result2profile` of the first 25 toy queries' alignments (profdb); the
+    whole `search qdb qdb --num-iterations 3` with its intermediates kept,
+    each step's output against its golden (pref_0: it_pref_0, prefilter
+    -s 5.7; aln_0: it_aln_0, align
+    --realign; profile_0: it_profile_0, result2profile; pref_tmp_1:
+    it_pref_tmp_1, the profile-query prefilter; pref_1: it_pref_1,
+    subtractdbs; aln_tmp_1: it_aln_tmp_1, the profile-query align; aln_1:
+    it3_aln_1; profile_1: it3_profile_1, result2profile of profile
+    queries) and its result against italn3 byte for byte; aln_1 is also
+    the whole --num-iterations 2 search's result (the same steps with the
+    same parameters: its last align runs at -e, which equals min(-e,
+    --e-profile) at the defaults; phase_golden_profile runs that branch
+    itself), held against italn byte for byte; then
+    `search` of sequences against profile targets (tprofile/refout) and
+    `search --exhaustive-search` with and without its filter
+    (sliced/refout, refout2). Each line gives the kernels' launches."""
+    from mmseqs2_tpu_torch.db import dbtype as dbt
+    from mmseqs2_tpu_torch.db.reader import DBReader
+    from mmseqs2_tpu_torch.db.writer import DBWriter
+    wrappers = kernel_wrappers()
+    qdb = GOLDEN / "qdb"
+
+    def launched(before):
+        return {n: w.launches - before[n] for n, w in wrappers.items()
+                if w.launches != before[n]}
+
+    def check(name, got, want, wall, launches):
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k))
+        log(f"golden {name}: {len(want)} entries, {len(bad)} differ, "
+            f"{wall:.2f} s, launches {json.dumps(launches)}")
+        if bad:
+            raise AssertionError(f"golden parity ({name}) fails for keys "
+                                 f"{bad[:10]}")
+
+    sub = WORK / "golden_aln25"
+    with DBReader(str(GOLDEN / "aln")) as r, \
+            DBWriter(str(sub), dbt.DBTYPE_ALIGNMENT_RES) as w:
+        for k in range(25):
+            w.write(k, r.get_data(r.get_id(k)))
+    before = {n: w.launches for n, w in wrappers.items()}
+    t0 = time.perf_counter()
+    run_cli(["result2profile", qdb, qdb, sub, WORK / "golden_profdb"])
+    want = entries(GOLDEN / "profdb")
+    check("result2profile (profdb)", entries(WORK / "golden_profdb"),
+          {k: want[k] for k in range(25)}, time.perf_counter() - t0,
+          launched(before))
+
+    tmp = WORK / "golden_it3_tmp"
+    before = {n: w.launches for n, w in wrappers.items()}
+    t0 = time.perf_counter()
+    with step_record() as steps:
+        run_cli(["search", qdb, qdb, WORK / "golden_italn3", tmp,
+                 "--num-iterations", 3, "--remove-tmp-files", 0])
+    wall = time.perf_counter() - t0
+    log("golden search --num-iterations 3 steps " + json.dumps(
+        [dict((k, r[k]) for k in ("command", "out", "s", "diag_rescore",
+                                  "diag_rescore_profile", "sw_multi",
+                                  "sw_multi_by_form") if k in r)
+         for r in steps]))
+    for out, gold in (("pref_0", "it_pref_0"), ("aln_0", "it_aln_0"),
+                      ("profile_0", "it_profile_0"),
+                      ("pref_tmp_1", "it_pref_tmp_1"),
+                      ("pref_1", "it_pref_1"),
+                      ("aln_tmp_1", "it_aln_tmp_1"), ("aln_1", "it3_aln_1"),
+                      ("profile_1", "it3_profile_1")):
+        rec = next(r for r in steps if r["out"] == out)
+        check(f"search --num-iterations 3: {out} ({gold})",
+              entries(tmp / out), entries(GOLDEN / gold), rec["s"],
+              {k: rec[k] for k in ("sw_multi", "diag_rescore",
+                                   "diag_rescore_profile") if rec[k]})
+    for out, gold in ((WORK / "golden_italn3", "italn3"),
+                      (tmp / "aln_1", "italn")):
+        same = [suf for suf in ("", ".index")
+                if pathlib.Path(f"{out}{suf}").read_bytes()
+                != (GOLDEN / f"{gold}{suf}").read_bytes()]
+        verdict = f"differ in {same}" if same else "equal byte for byte"
+        log(f"golden search --num-iterations {3 if gold == 'italn3' else 2} "
+            f"({gold}): data and index {verdict}, "
+            f"{wall:.2f} s for the three iterations, launches "
+            f"{json.dumps(launched(before))}")
+        if same:
+            raise AssertionError(f"the iterative search differs from {gold}"
+                                 f" ({same})")
+    if wrappers["diag_rescore_profile"].launches == before[
+            "diag_rescore_profile"]:
+        raise AssertionError("the profile-query prefilter launched no "
+                             "diag_rescore_profile kernel")
+
+    tp = GOLDEN.parent / "tprofile"
+    sliced = GOLDEN.parent / "sliced"
+    qsub = GOLDEN.parent / "fm" / "qsub"
+    for name, args, gold in (
+            ("search against profile targets (tprofile/refout)",
+             [tp / "qs", tp / "profdb"], tp / "refout"),
+            ("search --exhaustive-search (sliced/refout)",
+             [qsub, GOLDEN / "it_profile_0", "--exhaustive-search", 1,
+              "--exhaustive-search-filter", 0, "-a"], sliced / "refout"),
+            ("search --exhaustive-search --exhaustive-search-filter 1 "
+             "(sliced/refout2)",
+             [qsub, GOLDEN / "it_profile_0", "--exhaustive-search", 1,
+              "--exhaustive-search-filter", 1, "-a"], sliced / "refout2")):
+        out = WORK / f"golden_{gold.parent.name}_{gold.name}"
+        before = {n: w.launches for n, w in wrappers.items()}
+        t0 = time.perf_counter()
+        run_cli(["search", *args[:2], out, f"{out}_tmp", *args[2:]])
+        check(name, entries(out), entries(gold), time.perf_counter() - t0,
+              launched(before))
 
 
 def lengths(rng, n):
@@ -1439,30 +1844,37 @@ def device_spans_s(events):
     return busy / 1e6, by_name
 
 
-def phase_trace(label, args, out, reference, untraced_wall, focus=None):
-    """One command of a real-size phase once more, under torch.profiler
-    (CPU and CUDA activities), apart from the untraced run whose wall is
-    the metric: the card's busy and idle shares of the traced wall, device
-    time by kernel (and, for `focus`, the count and seconds of the kernels
-    whose names hold it, with their share of the device time), and what
-    tracing costs. The traced run must give the entries of `reference` (a
-    DB) or its bytes (a flat file)."""
+def traced(fn):
+    """fn() under torch.profiler (CPU and CUDA activities); returns the
+    profiler and fn's wall seconds, the card synchronised at both ends."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_cli(args)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def export_trace(prof, label):
+    """A finished torch.profiler run's chrome trace, written at once (the
+    next profiler session may take its device activity with it); returns
+    the file's path."""
     path = WORK / f"{label}_trace.json"
     prof.export_chrome_trace(str(path))
-    with open(path) as f:
-        busy, by_name = device_spans_s(json.load(f)["traceEvents"])
-    path.unlink()
-    if busy <= 0:
-        raise AssertionError("the profiler trace holds no device activity")
+    return path
+
+
+def phase_trace(label, args, out, reference, untraced_wall, focus=None):
+    """One command of a real-size phase once more, under torch.profiler,
+    apart from the untraced run whose wall is the metric (trace_summary,
+    with what tracing costs). The traced run must give the entries of
+    `reference` (a DB) or its bytes (a flat file)."""
+    prof, wall = traced(lambda: run_cli(args))
+    path = export_trace(prof, label)
     if os.path.exists(f"{reference}.dbtype"):
         same = entries(out) == entries(reference)
     else:
@@ -1470,11 +1882,27 @@ def phase_trace(label, args, out, reference, untraced_wall, focus=None):
             pathlib.Path(reference).read_bytes()
     if not same:
         raise AssertionError(f"the traced {label} run gave other results")
+    return trace_summary(path, label, wall, untraced_wall, focus)
+
+
+def trace_summary(path, label, wall, untraced_wall=None, focus=None):
+    """From the exported trace (export_trace) of a torch.profiler run of
+    `wall` seconds: the card's busy and idle shares of the wall, device
+    time by kernel (and, for `focus`, the count and seconds of the kernels
+    whose names hold it, with their share of the device time), and, given
+    the wall of the same work untraced, what tracing costs."""
+    with open(path) as f:
+        busy, by_name = device_spans_s(json.load(f)["traceEvents"])
+    path.unlink()
+    if busy <= 0:
+        raise AssertionError("the profiler trace holds no device activity")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     res = dict(
         traced_wall_s=wall, untraced_wall_s=untraced_wall,
-        tracing_overhead=wall / untraced_wall - 1, device_busy_s=busy,
-        busy_share=busy / wall, idle_share=1 - busy / wall,
+        tracing_overhead=(None if untraced_wall is None
+                          else wall / untraced_wall - 1),
+        device_busy_s=busy, busy_share=busy / wall,
+        idle_share=1 - busy / wall,
         device_s_by_name=[dict(name=n[:100], count=c, s=s)
                           for n, (c, s) in top])
     if focus:
@@ -1495,9 +1923,11 @@ def m8_by_query(path):
     return {q: sorted(v) for q, v in out.items()}
 
 
-def phase_easy_search(n_queries=1_000, n_check=32):
+def phase_easy_search(check, n_queries=1_000):
     """The main path at real size: easy-search from the two FASTA files of
-    phase_real_size through createdb, prefilter, align and convertalis."""
+    phase_real_size through createdb, prefilter, align and convertalis; its
+    first check['n_easy'] queries' lines held to the CPU side's easy-search
+    of them (real_size_cpu_checks, phase 4)."""
     import torch
     from mmseqs2_tpu_torch.align import aligner
     from mmseqs2_tpu_torch.commands import prefilter_kmer
@@ -1555,21 +1985,17 @@ def phase_easy_search(n_queries=1_000, n_check=32):
     if pst["queries"] != n_queries or n_hits == 0:
         raise AssertionError("the easy-search run wrote no results")
 
-    # the first queries once more with the CPU requested (plain versions)
+    # the first queries with the CPU requested (plain versions), run
+    # beside phase 4
     with open(WORK / "queries.fasta") as f:
         records = f.read().split(">")[1:]
-    with open(WORK / "queries_check.fasta", "w") as f:
-        f.write("".join(">" + r for r in records[:n_check]))
-    t0 = time.perf_counter()
-    run_cli(["easy-search", WORK / "queries_check.fasta",
-             WORK / "targets.fasta", WORK / "es_cpu.m8", WORK / "es_cpu_tmp"],
-            cpu=True)
-    cpu = m8_by_query(WORK / "es_cpu.m8")
+    n_check = check["n_easy"]
+    cpu = m8_by_query(check["easy_search_m8"])
     first = [r.split(None, 1)[0] for r in records[:n_check]]
     bad = [q for q in first if cpu.get(q) != got.get(q)]
     log(f"easy-search CPU cross-check: first {n_check} queries "
         f"({sum(len(v) for v in cpu.values())} lines), {len(bad)} differ, "
-        f"CPU run {time.perf_counter() - t0:.2f} s")
+        f"CPU side {check['cpu_s']['easy-search']:.2f} s (beside phase 4)")
     if bad or not cpu:
         raise AssertionError(f"card and CPU easy-search differ for queries "
                              f"{bad[:10]}")
@@ -1688,10 +2114,15 @@ def real_cells(qdb, tdb, n_queries=None):
         return qres * t.total_residues()
 
 
-def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
-                     n_check_targets=500, n_server_check=100):
+def phase_exhaustive(check, n_queries=1_000, max_seqs=300,
+                     n_server_check=100):
     """This slice at real size: the exhaustive prefilter of phase 5's query
-    and target DBs, locally, through a resident server and gapped."""
+    and target DBs, locally, through a resident server and gapped; the
+    first check['n_exhaustive'] queries against the first
+    check['n_exhaustive_targets'] targets, and gappedprefilter of the
+    first check['n_gapped'] against them, held to the CPU side's runs
+    (real_size_cpu_checks, phase 4) on createdb's DBs of the same files,
+    which must be phase 5's DBs byte for byte."""
     import torch
     from mmseqs2_tpu_torch.commands import prefilter_cmd
     from mmseqs2_tpu_torch.ops import gapless as gl
@@ -1762,16 +2193,19 @@ def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
     if len(got) != n_queries or ungapped["hits"] == 0:
         raise AssertionError("the ungappedprefilter run wrote no results")
 
-    # b. the first queries with the CPU requested, against the first
-    # n_check_targets targets (a cut for time) and with no --max-seqs cut:
-    # a pair's score does not depend on the other targets
-    q_chk = sub_db(qdb, n_check, WORK / "q_chk")
-    t_chk = sub_db(tdb, n_check_targets, WORK / "t_chk")
-    t0 = time.perf_counter()
-    run_cli(["ungappedprefilter", q_chk, t_chk, WORK / "upref_cpu",
-             "--max-seqs", 1_000_000], cpu=True)
-    cpu = entries(WORK / "upref_cpu")
-    t_keys = set(entries(t_chk))
+    # b. the first queries with the CPU requested (phase 4's CPU side),
+    # against the first n_check_targets targets (a cut for time) and with
+    # no --max-seqs cut: a pair's score does not depend on the other targets
+    n_check, n_check_targets = check["n_exhaustive"], check[
+        "n_exhaustive_targets"]
+    for mine, theirs in ((qdb, check["x_qdb"]), (tdb, check["x_tdb"])):
+        for suffix in ("", ".index", "_h", "_h.index"):
+            if pathlib.Path(f"{mine}{suffix}").read_bytes() != \
+                    pathlib.Path(f"{theirs}{suffix}").read_bytes():
+                raise AssertionError(f"the CPU side's {theirs}{suffix} is "
+                                     f"not {mine}{suffix}")
+    cpu = entries(check["upref"])
+    t_keys = set(entries(check["t_chk"]))
     bad, n_common = [], 0
     for k in cpu:
         card, want = pref_hits(got[k]), dict(pref_hits(cpu[k]))
@@ -1785,8 +2219,9 @@ def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
             bad.append(k)
     log(f"ungappedprefilter CPU cross-check (cut for time: the first "
         f"{n_check} queries against the first {n_check_targets} targets): "
-        f"{n_common} hits in common, {len(bad)} queries differ, CPU run "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{n_common} hits in common, {len(bad)} queries differ, CPU side "
+        f"{check['cpu_s']['exhaustive prefilter']:.2f} s with the gapped "
+        f"one (beside phase 4)")
     if bad or len(cpu) != n_check or n_common == 0:
         raise AssertionError(f"card and CPU ungappedprefilter differ for "
                              f"queries {bad[:10]}")
@@ -1850,18 +2285,16 @@ def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
     for k, data in gp.items():
         un = dict(pref_hits(got[k]))
         low += sum(1 for t, s in pref_hits(data) if s < un.get(t, 0))
-    # and a sub-DB run equals the CPU's bytes
-    q8 = sub_db(qdb, 8, WORK / "q8")
+    # and a sub-DB run equals the CPU side's bytes
+    q8 = sub_db(qdb, check["n_gapped"], WORK / "q8")
+    t_chk = sub_db(tdb, n_check_targets, WORK / "t_chk")
     run_cli(["gappedprefilter", q8, t_chk, WORK / "gpref_sub", "-e", "10"])
-    t0 = time.perf_counter()
-    run_cli(["gappedprefilter", q8, t_chk, WORK / "gpref_sub_cpu", "-e",
-             "10"], cpu=True)
-    a, b = entries(WORK / "gpref_sub"), entries(WORK / "gpref_sub_cpu")
+    a, b = entries(WORK / "gpref_sub"), entries(check["gpref"])
     log(f"gappedprefilter cross-check: {low} hits score below their gapless "
-        f"score; 8 queries against {n_check_targets} targets "
-        f"({sum(v.count(b'\n') for v in b.values())} hits) on the card and "
-        f"with the CPU requested: {'equal' if a == b else 'DIFFER'}, CPU "
-        f"run {time.perf_counter() - t0:.2f} s")
+        f"score; {check['n_gapped']} queries against {n_check_targets} "
+        f"targets ({sum(v.count(b'\n') for v in b.values())} hits) on the "
+        f"card and with the CPU requested (phase 4's CPU side): "
+        f"{'equal' if a == b else 'DIFFER'}")
     if low or a != b or not any(b.values()) or gapped["hits"] == 0:
         raise AssertionError("gappedprefilter differs on the card and the "
                              "CPU")
@@ -1870,33 +2303,52 @@ def phase_exhaustive(n_queries=1_000, max_seqs=300, n_check=32,
 
 
 @contextlib.contextmanager
-def step_record():
+def step_record(trace=None):
     """While this holds, every workflow step that runs records its command,
     its output's name, its wall seconds, and what it launched and read back
     (a step inside a step counts in both): sw_multi by form,
-    diag_rescore, the aligner's read-backs; for a prefilter step also its
-    route (the card's flushes, or the host matcher when it dispatched none)
-    and its index seconds. Yields the list of records."""
+    diag_rescore and diag_rescore_profile, the aligner's read-backs and its
+    host seconds (scan, backtrace); for a prefilter step also its route
+    (the card's flushes, or the host matcher when it dispatched none), its
+    index seconds, its stage-0 seconds (summed over the workers; for
+    profile queries their k-mer enumeration), its dispatch and wait
+    seconds, the profile bytes its flushes uploaded and the queries the
+    host oracle took. A step whose output is named in `trace` (a dict:
+    output name -> trace label) runs under torch.profiler (traced), its
+    trace exported at once and its path under "trace_path" in its record.
+    Yields the list of records."""
     from mmseqs2_tpu_torch.align import aligner
     from mmseqs2_tpu_torch.commands import prefilter_kmer
     from mmseqs2_tpu_torch.ops import rescore, sw
     from mmseqs2_tpu_torch.workflow import engine
     step = engine.Workflow.step
     records = []
+    trace = trace or {}
+
+    pf_keys = ("index_s", "prep_s", "dispatch_s", "wait_s", "profile_bytes",
+               "host_oracle_queries")
 
     def snap():
         return (sw.sw_multi.launches, dict(sw.sw_multi.form_launches),
                 rescore.diag_rescore.launches, aligner.STATS["readbacks"],
                 prefilter_kmer.STATS["flushes"],
-                prefilter_kmer.STATS["index_s"])
+                {k: prefilter_kmer.STATS[k] for k in pf_keys},
+                rescore.diag_rescore_profile.launches,
+                aligner.STATS["scan_s"], aligner.STATS["backtrace_s"])
 
     def recorded(self, out_db, command_name, args, par=None):
         if not engine.not_exists(out_db) and not self.force_reuse:
             return step(self, out_db, command_name, args, par)
         before = snap()
-        t0 = time.perf_counter()
-        step(self, out_db, command_name, args, par)
-        wall = time.perf_counter() - t0
+        label = trace.get(os.path.basename(out_db))
+        if label:
+            prof, wall = traced(lambda: step(self, out_db, command_name,
+                                             args, par))
+            trace_path = export_trace(prof, label)
+        else:
+            t0 = time.perf_counter()
+            step(self, out_db, command_name, args, par)
+            wall = time.perf_counter() - t0
         after = snap()
         rec = dict(
             command=command_name, out=os.path.basename(out_db),
@@ -1904,11 +2356,15 @@ def step_record():
             sw_multi_by_form={k: after[1][k] - before[1][k]
                               for k in after[1]},
             diag_rescore=after[2] - before[2],
-            readbacks=after[3] - before[3])
+            diag_rescore_profile=after[6] - before[6],
+            readbacks=after[3] - before[3], scan_host_s=after[7] - before[7],
+            backtrace_s=after[8] - before[8])
         if command_name == "prefilter":
             rec.update(route="card" if after[4] > before[4] else "host",
                        flushes=after[4] - before[4],
-                       index_s=after[5] - before[5])
+                       **{k: after[5][k] - before[5][k] for k in pf_keys})
+        if label:
+            rec["trace_path"] = trace_path
         records.append(rec)
     engine.Workflow.step = recorded
     try:
@@ -1942,17 +2398,20 @@ def kernel_wrappers():
     launches in `.launches`."""
     from mmseqs2_tpu_torch.ops import gapless, rescore, sw
     return dict(sw_multi=sw.sw_multi, diag_rescore=rescore.diag_rescore,
+                diag_rescore_profile=rescore.diag_rescore_profile,
                 gapless=gapless.gapless, gapless_score=gapless.gapless_score,
                 sw_single=sw.sw_single, sw_offset=sw.sw_offset,
                 sw_score=sw.sw_score)
 
 
-def run_clustering(cmd, fasta, label, flags):
+def run_clustering(cmd, fasta, label, flags, focus=None):
     """One easy-* clustering on the card, every kernel's count set to 0
     just before and read just after: wall, sequences/s, clusters, the wall
     by step, align2clust's work (its gapped calls, their sw_multi launches
     by form and their read-backs) and each prefilter and align round's
-    route, index seconds and launches."""
+    route, index seconds and launches. Given `focus`, the run is traced
+    (torch.profiler; its wall includes what tracing costs) and its
+    trace_summary is under "trace"."""
     import torch
     from mmseqs2_tpu_torch.align import aligner
     from mmseqs2_tpu_torch.commands import align2clust, prefilter_kmer
@@ -1968,11 +2427,18 @@ def run_clustering(cmd, fasta, label, flags):
         w.launches = 0
     sw.sw_multi.form_launches = dict.fromkeys(sw.sw_multi.form_launches, 0)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with step_record() as steps:
+
+    def run():
         run_cli([cmd, fasta, WORK / label, WORK / f"{label}_tmp", *flags])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with step_record() as steps:
+        if focus:
+            prof, wall = traced(run)
+        else:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    trace_path = export_trace(prof, cmd) if focus else None
     n_clu = cluster_outputs_check(WORK / label, n_seqs)
     a2c = [r for r in steps if r["command"] == "align2clust"]
     a2c_forms = {k: sum(r["sw_multi_by_form"][k] for r in a2c)
@@ -2001,6 +2467,8 @@ def run_clustering(cmd, fasta, label, flags):
                      readbacks=aligner.STATS["readbacks"]),
         rounds=rounds)
     log(f"clustering {label} " + json.dumps(res))
+    if focus:
+        res["trace"] = trace_summary(trace_path, cmd, wall, focus=focus)
     return res
 
 
@@ -2015,7 +2483,8 @@ def same_cluster_files(a, b):
 README_CLUSTER = ["--min-seq-id", "0.5", "-c", "0.8", "--cov-mode", "1"]
 
 
-# the CPU side of phase 8's cross-check, run in a subprocess during phase 4
+# the CPU side of phase 8's cross-check, run in a subprocess during phases
+# 3 and 4
 # (argv: FASTA, work directory, easy-cluster's flags)
 CPU_CHECK = r"""
 import sys
@@ -2056,8 +2525,9 @@ def cluster_cpu_check(n_check=2_000, n_dup=200):
     the 50,000 targets have, so that it is composed like their first
     n_check) and n_dup planted near-duplicates of them. A subprocess runs
     easy-linclust and easy-cluster on it with the CPU requested while the
-    block runs (phase 4: correctness only, no number of it is a metric);
-    leaving the block waits for it, so nothing measured runs beside it.
+    block runs (phases 3 and 4: no number of phase 4 is a metric, and
+    phase 3's kernel times are the card's own, from CUDA events); leaving
+    the block waits for it, so nothing measured after it runs beside it.
     Yields a dict with the set's path; `cpu_s` once done."""
     rng = np.random.default_rng(SEED + 10)
     seqs, names, _ = family_targets(rng, n_check, max(N_TARGETS // 8, 1),
@@ -2065,47 +2535,279 @@ def cluster_cpu_check(n_check=2_000, n_dup=200):
     dups = near_duplicates(seqs, n_dup, rng)
     check = WORK / "check.fasta"
     write_fasta(check, names + [f"D{k}" for k in range(n_dup)], seqs + dups)
+    out = dict(fasta=check, n_check=n_check, n_dup=n_dup)
+    with cpu_side("clustering", CPU_CHECK,
+                  [check, WORK, *README_CLUSTER], out):
+        yield out
+    log(f"clustering CPU side: {n_check} + {n_dup} sequences, "
+        f"easy-linclust and easy-cluster in {out['cpu_s']:.2f} s")
+
+
+@contextlib.contextmanager
+def cpu_side(label, script, args, out):
+    """Runs `script` (python -c, argv `args`) with the CPU requested in a
+    subprocess while the block runs; leaving the block waits for it
+    (sets out['cpu_s'], the seconds the script itself took) and raises with
+    its stderr if it failed. The subprocess is killed if the block
+    raises."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="4",
                MMSEQS2_TPU_TORCH_DEVICE="cpu")
-    out = dict(fasta=check, n_check=n_check, n_dup=n_dup)
-    t0 = time.perf_counter()
-    with open(WORK / "cpu_check.err", "w") as err:
+    stem = WORK / f"cpu_side_{label.replace(' ', '_')}"
+    timed = (f"import time as _t\n_t0 = _t.perf_counter()\n{script}\n"
+             f"open({str(stem) + '.s'!r}, 'w').write("
+             f"repr(_t.perf_counter() - _t0))\n")
+    err_path = pathlib.Path(f"{stem}.err")
+    with open(err_path, "w") as err:
         proc = subprocess.Popen(
-            [sys.executable, "-c", CPU_CHECK, str(check), str(WORK),
-             *README_CLUSTER], env=env, cwd=ROOT,
-            stdout=subprocess.DEVNULL, stderr=err)
+            [sys.executable, "-c", timed, *map(str, args)], env=env,
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err)
     try:
-        yield out
+        yield
         rc = proc.wait(timeout=900)
-        out["cpu_s"] = time.perf_counter() - t0
-        log(f"clustering CPU side: {n_check} + {n_dup} sequences, "
-            f"easy-linclust and easy-cluster in {out['cpu_s']:.2f} s, rc {rc}")
         if rc != 0:
-            raise RuntimeError("the CPU side of the clustering cross-check "
-                               "failed: "
-                               + (WORK / "cpu_check.err").read_text()[-3000:])
+            raise RuntimeError(f"the CPU side of the {label} cross-check "
+                               f"failed (rc {rc}): "
+                               + err_path.read_text()[-3000:])
+        out["cpu_s"] = float(pathlib.Path(f"{stem}.s").read_text())
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=60)
 
 
-def phase_clustering(check, n_cluster=10_000):
-    """Clustering at real size on phase 5's SwissProt-like targets:
-    easy-linclust of all of them with the defaults, easy-cluster of the
-    first n_cluster (a cut for time) at MMseqs2's README parameters. Then
-    both on the check set of cluster_cpu_check, on the card (align2clust
-    must accept pairs by its ungapped rescore and by its gapped fallback),
-    their files equal to the CPU side's, and the card's easy-cluster of it
-    once more under torch.profiler (a cut for time: the check set, not the
-    n_cluster run)."""
-    records = (WORK / "targets.fasta").read_text().split(">")[1:]
-    head = WORK / f"targets_{n_cluster}.fasta"
-    head.write_text("".join(">" + r for r in records[:n_cluster]))
+# a CPU side that runs its steps one after another (argv: a JSON list of
+# steps, each a CLI command's arguments or ["sub_db", src, n, dst])
+CLI_CPU_CHECK = r"""
+import json, sys
+from chip_smoke import sub_db
+from mmseqs2_tpu_torch.cli import main
+for argv in json.loads(sys.argv[1]):
+    if argv[0] == "sub_db":
+        sub_db(argv[1], int(argv[2]), argv[3])
+    else:
+        assert main(argv) == 0, argv
+"""
 
-    lin = run_clustering("easy-linclust", WORK / "targets.fasta",
-                         "linclust", [])
-    cas = run_clustering("easy-cluster", head, "cluster", README_CLUSTER)
+
+def cli_cpu_side(label, steps, out):
+    """cpu_side of CLI_CPU_CHECK on `steps`."""
+    return cpu_side(label, CLI_CPU_CHECK,
+                    [json.dumps([[str(a) for a in st] for st in steps])], out)
+
+
+@contextlib.contextmanager
+def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=3,
+                         n_exhaustive=32, n_exhaustive_targets=500,
+                         n_gapped=8, n_targets=N_TARGETS, n_queries=1_000):
+    """The CPU sides of phases 6, 7 and 9: phase 5's FASTA files made now,
+    from a copy of the generator as phase 5 will find it (phase 5 makes the
+    same bytes again), and three subprocesses that run with the CPU
+    requested while the block runs (phase 4: correctness only):
+    `easy-search` of the first n_easy queries against all the targets;
+    `search --num-iterations` of the first n_iterative; and, on createdb's
+    DBs of the two files (phase 5's bytes), `ungappedprefilter` of the
+    first n_exhaustive queries against the first n_exhaustive_targets
+    targets and `gappedprefilter` of the first n_gapped against them.
+    Leaving the block waits for them. Yields a dict with their results'
+    paths and, once done, their seconds."""
+    import copy
+    make_scale_data(copy.deepcopy(rng), n_targets, n_queries)
+    records = (WORK / "queries.fasta").read_text().split(">")[1:]
+
+    def first(n):
+        path = WORK / f"cpu_check_queries_{n}.fasta"
+        path.write_text("".join(">" + r for r in records[:n]))
+        return path
+
+    w, tf = WORK, WORK / "targets.fasta"
+    out = dict(easy_search_m8=w / "es_cpu.m8", n_easy=n_easy,
+               res=w / "it_cpu_res", qdb=w / "it_cpu_q",
+               n_check=n_iterative, iterations=iterations,
+               x_qdb=w / "x_cpu_q", x_tdb=w / "x_cpu_t",
+               t_chk=w / "x_cpu_t_chk", upref=w / "upref_cpu",
+               gpref=w / "gpref_sub_cpu", n_exhaustive=n_exhaustive,
+               n_exhaustive_targets=n_exhaustive_targets, n_gapped=n_gapped)
+    steps = {
+        "easy-search": [["easy-search", first(n_easy), tf,
+                         out["easy_search_m8"], w / "es_cpu_tmp"]],
+        "iterative search": [
+            ["createdb", first(n_iterative), out["qdb"]],
+            ["createdb", tf, w / "it_cpu_t"],
+            ["search", out["qdb"], w / "it_cpu_t", out["res"],
+             w / "it_cpu_tmp", "--num-iterations", iterations]],
+        "exhaustive prefilter": [
+            ["createdb", WORK / "queries.fasta", out["x_qdb"]],
+            ["createdb", tf, out["x_tdb"]],
+            ["sub_db", out["x_qdb"], n_exhaustive, w / "x_cpu_q_chk"],
+            ["sub_db", out["x_tdb"], n_exhaustive_targets, out["t_chk"]],
+            ["sub_db", out["x_qdb"], n_gapped, w / "x_cpu_q8"],
+            ["ungappedprefilter", w / "x_cpu_q_chk", out["t_chk"],
+             out["upref"], "--max-seqs", 1_000_000],
+            ["gappedprefilter", w / "x_cpu_q8", out["t_chk"], out["gpref"],
+             "-e", 10]]}
+    sides = {name: {} for name in steps}
+    with contextlib.ExitStack() as stack:
+        for name, st in steps.items():
+            stack.enter_context(cli_cpu_side(name, st, sides[name]))
+        yield out
+    out["cpu_s"] = {name: side["cpu_s"] for name, side in sides.items()}
+    log(f"real-size CPU sides: easy-search of the first {n_easy} queries "
+        f"x {n_targets} targets in {out['cpu_s']['easy-search']:.2f} s, "
+        f"search --num-iterations {iterations} of the first {n_iterative} "
+        f"in {out['cpu_s']['iterative search']:.2f} s, ungappedprefilter of "
+        f"the first {n_exhaustive} x {n_exhaustive_targets} and "
+        f"gappedprefilter of the first {n_gapped} in "
+        f"{out['cpu_s']['exhaustive prefilter']:.2f} s")
+
+
+def iteration_steps(steps, it, last, result="it_res"):
+    """The records of iteration `it`'s steps (step_record), by role; the
+    last iteration's merge writes the search's `result`."""
+    names = dict(pref=f"pref_{it}", pref_tmp=f"pref_tmp_{it}",
+                 aln_tmp="aln_0" if it == 0 else f"aln_tmp_{it}",
+                 merged=None if it == 0 else (result if last
+                                              else f"aln_{it}"),
+                 profile=None if last else f"profile_{it}")
+    by_out = {r["out"]: r for r in steps}
+    return {role: by_out.get(name) for role, name in names.items()}
+
+
+def phase_iterative(check, n_queries=100, iterations=3):
+    """blastpgp at real size: `search --num-iterations` of the first
+    n_queries records of phase 5's queries against its targets (phase 6's
+    createdb of them: no prebuilt index), every kernel's count set to 0
+    just before and read just after. Prints the wall, queries/s and, per
+    iteration, hits, the prefilter's seconds (index build, stage-0 with
+    the profile k-mer enumeration, dispatch, wait), its route, flushes and
+    diag_rescore launches by form, the profile bytes uploaded and the
+    host-oracle queries, align's seconds (scan host, backtrace) with
+    sw_multi's launches by form and its read-backs, and result2profile's,
+    subtractdbs' and mergedbs' seconds. Iteration 1's profile-query
+    prefilter and align steps run under torch.profiler in this run (a
+    rerun of the prefilter would build its index once more): busy share
+    and device time by kernel. The first check['n_check'] queries' entries
+    must equal the CPU side's (phase 4)."""
+    import torch
+    from mmseqs2_tpu_torch.align import aligner
+    from mmseqs2_tpu_torch.commands import prefilter_kmer
+    from mmseqs2_tpu_torch.ops import sw
+    from mmseqs2_tpu_torch.workflow import engine
+    # the first n_queries query records (the CPU side's first ones among
+    # them; createdb's keys follow no record order, so results are held
+    # against the CPU side's by query name) and phase 6's target DB
+    records = (WORK / "queries.fasta").read_text().split(">")[1:]
+    (WORK / "it_queries.fasta").write_text(
+        "".join(">" + r for r in records[:n_queries]))
+    qdb = WORK / "it_q"
+    run_cli(["createdb", WORK / "it_queries.fasta", qdb])
+    tdb = WORK / "es_tmp" / "target"
+    tmp = WORK / "it_tmp"
+    aligner.reset_stats()
+    prefilter_kmer.reset_stats()
+    engine.STEP_SECONDS.clear()
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    sw.sw_multi.form_launches = dict.fromkeys(sw.sw_multi.form_launches, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traced_steps = dict(pref_tmp_1="profile-query prefilter",
+                        aln_tmp_1="profile-query align")
+    with step_record(trace=traced_steps) as steps:
+        run_cli(["search", qdb, tdb, WORK / "it_res", tmp,
+                 "--num-iterations", iterations, "--remove-tmp-files", 0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    for name in ("sw_multi", "diag_rescore", "diag_rescore_profile"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the iterative search launched no {name} "
+                                 f"kernel")
+    res_entries = entries(WORK / "it_res")
+    per_it = []
+    for it in range(iterations):
+        last = it == iterations - 1
+        r = iteration_steps(steps, it, last)
+        pref = r["pref"] if it == 0 else r["pref_tmp"]
+        aln = r["aln_tmp"]
+        merged = WORK / "it_res" if last else tmp / (
+            "aln_0" if it == 0 else f"aln_{it}")
+        row = dict(
+            iteration=it,
+            hits_new=sum(v.count(b"\n") for v in entries(
+                tmp / aln["out"]).values()),
+            hits_total=sum(v.count(b"\n") for v in entries(
+                merged).values()),
+            prefilter=dict((k, pref[k]) for k in (
+                "s", "route", "flushes", "index_s", "prep_s", "dispatch_s",
+                "wait_s", "profile_bytes", "host_oracle_queries",
+                "diag_rescore", "diag_rescore_profile")),
+            align=dict((k, aln[k]) for k in (
+                "s", "scan_host_s", "backtrace_s", "sw_multi",
+                "sw_multi_by_form", "readbacks")))
+        if it > 0:
+            row["subtractdbs_s"] = r["pref"]["s"]
+            row["mergedbs_s"] = r["merged"]["s"]
+        if r["profile"] is not None:
+            row["result2profile_s"] = r["profile"]["s"]
+            row["result2profile_sw_multi"] = r["profile"]["sw_multi"]
+        per_it.append(row)
+    n_hits = sum(v.count(b"\n") for v in res_entries.values())
+    res = dict(
+        queries=n_queries, targets=N_TARGETS, iterations=iterations,
+        wall_s=wall, queries_per_s=n_queries / wall, hits=n_hits,
+        queries_with_hits=sum(1 for v in res_entries.values() if v),
+        launches=dict(launches,
+                      sw_multi_by_form=dict(sw.sw_multi.form_launches)),
+        step_s=dict(engine.STEP_SECONDS), per_iteration=per_it,
+        int32_launches=sorted({json.dumps(b, sort_keys=True) for b in
+                               aligner.STATS["int32_launches"]}))
+    log("iterative-search " + json.dumps(res))
+    if len(res_entries) != n_queries or n_hits == 0:
+        raise AssertionError("the iterative search wrote no results")
+
+    cpu = entries(check["res"])
+    cpu_key, card_key = name_to_key(check["qdb"]), name_to_key(qdb)
+    bad = [name for name, k in cpu_key.items()
+           if cpu[k] != res_entries.get(card_key[name])]
+    log(f"iterative search CPU cross-check: first {len(cpu)} queries "
+        f"({sum(v.count(b'\n') for v in cpu.values())} hits), {len(bad)} "
+        f"differ; CPU side {check['cpu_s']['iterative search']:.2f} s "
+        f"(beside phase 4)")
+    if bad or len(cpu) != check["n_check"]:
+        raise AssertionError(f"card and CPU iterative search differ for "
+                             f"queries {bad[:10]}")
+
+    # iteration 1's profile-query steps, traced in the run
+    traces = {}
+    for out, label in traced_steps.items():
+        rec = next(r for r in steps if r["out"] == out)
+        role, focus = (("prefilter", "rescore_kernel")
+                       if rec["command"] == "prefilter"
+                       else ("align", "sw_kernel"))
+        traces[role] = trace_summary(rec.pop("trace_path"), label, rec["s"],
+                                     focus=focus)
+    return res, traces
+
+
+def phase_clustering(check, n_linclust=25_000, n_cluster=5_000):
+    """Clustering at real size on phase 5's SwissProt-like targets:
+    easy-linclust of the first n_linclust with the defaults, easy-cluster of
+    the first n_cluster at MMseqs2's README parameters (both cuts for the
+    script's time: PERF.md section 4). Then both on the check set of
+    cluster_cpu_check, on the card (align2clust must accept pairs by its
+    ungapped rescore and by its gapped fallback), their files equal to the
+    CPU side's, the card's easy-cluster of it traced in that run (the
+    check set, not the n_cluster run: a cut for time)."""
+    records = (WORK / "targets.fasta").read_text().split(">")[1:]
+    heads = {}
+    for n in (n_linclust, n_cluster):
+        heads[n] = WORK / f"targets_{n}.fasta"
+        heads[n].write_text("".join(">" + r for r in records[:n]))
+
+    lin = run_clustering("easy-linclust", heads[n_linclust], "linclust", [])
+    cas = run_clustering("easy-cluster", heads[n_cluster], "cluster",
+                         README_CLUSTER)
     for name, res in (("sw_multi", cas), ("diag_rescore", cas),
                       ("sw_multi", lin)):
         if res["launches"][name] <= 0:
@@ -2116,8 +2818,9 @@ def phase_clustering(check, n_cluster=10_000):
     for cmd, flags in (("easy-linclust", []),
                        ("easy-cluster", README_CLUSTER)):
         label = cmd.replace("easy-", "")
-        cross[label] = run_clustering(cmd, check["fasta"], f"chk_{label}",
-                                      flags)
+        cross[label] = run_clustering(
+            cmd, check["fasta"], f"chk_{label}", flags,
+            focus="sw_kernel" if cmd == "easy-cluster" else None)
         bad = same_cluster_files(WORK / f"chk_{label}",
                                  WORK / f"chk_{label}_cpu")
         a2c = cross[label]["align2clust"]
@@ -2127,7 +2830,7 @@ def phase_clustering(check, n_cluster=10_000):
             f"{a2c['ungapped_accepted']} ungapped, {a2c['gapped_accepted']} "
             f"gapped), {len(bad)} of 3 files differ from the CPU side's; "
             f"card {cross[label]['wall_s']:.2f} s, CPU side of both "
-            f"commands {check['cpu_s']:.2f} s (beside phase 4)")
+            f"commands {check['cpu_s']:.2f} s (beside phases 3 and 4)")
         if bad:
             raise AssertionError(f"{cmd}: the card's and the CPU's {bad} "
                                  f"differ")
@@ -2135,13 +2838,8 @@ def phase_clustering(check, n_cluster=10_000):
     if a2c["gapped_accepted"] <= 0 or a2c["ungapped_accepted"] <= 0:
         raise AssertionError(f"the check set's easy-linclust did not accept "
                              f"pairs by both routes of align2clust: {a2c}")
-    trace = phase_trace(
-        "easy-cluster", ["easy-cluster", check["fasta"], WORK / "chk_traced",
-                         WORK / "chk_traced_tmp", *README_CLUSTER],
-        WORK / "chk_traced_cluster.tsv", WORK / "chk_cluster_cluster.tsv",
-        cross["cluster"]["wall_s"], focus="sw_kernel")
     return dict(linclust=lin, cluster=cas, cross_check=dict(
-        cross, cpu_both_s=check["cpu_s"]), trace=trace)
+        cross, cpu_both_s=check["cpu_s"]), trace=cross["cluster"]["trace"])
 
 
 def main():
@@ -2186,18 +2884,27 @@ def main():
                 log(f"  ptxas {name}: {line.strip()}")
     phase_done(2)
 
-    # 3. kernels against their plain versions
-    rows = phase_kernels(rng)
-    rrows = phase_rescore_kernel(rng)
-    xrows = phase_exhaustive_kernels(rng)
-    phase_done(3)
+    # 3. kernels against their plain versions, while phase 8's CPU side
+    # (its own data) starts; 4. golden parity on the card, while the CPU
+    # sides of phases 6, 7 and 9 run too (on phase 5's data, made now from
+    # a copy of the generator as phase 5 will find it: the server's
+    # profile, the phase's one draw, is drawn first); leaving the block
+    # waits for every side
+    with contextlib.ExitStack() as sides:
+        check = sides.enter_context(cluster_cpu_check())
+        rows = phase_kernels(rng)
+        rrows = phase_rescore_kernel(rng)
+        xrows = phase_exhaustive_kernels(rng)
+        prows = phase_rescore_profile_kernel()
+        phase_done(3)
 
-    # 4. golden parity on the card, while phase 8's CPU side runs
-    with cluster_cpu_check() as check:
+        prof = server_profile(rng)
+        rcheck = sides.enter_context(real_size_cpu_checks(rng))
         phase_golden()
         phase_golden_search()
-        srv_launches = phase_golden_exhaustive(rng)
+        srv_launches = phase_golden_exhaustive(prof)
         phase_golden_cluster()
+        phase_golden_profile()
     phase_done(4)
 
     # 5. the align stage alone at real size (its traced rerun went when
@@ -2206,24 +2913,30 @@ def main():
     phase_done(5)
 
     # 6. the main path at real size: easy-search, then a traced prefilter
-    easy, easy_trace, _ = phase_easy_search()
+    easy, easy_trace, _ = phase_easy_search(rcheck)
     phase_done(6)
 
     # 7. the exhaustive prefilter at real size
-    exh = phase_exhaustive()
+    exh = phase_exhaustive(rcheck)
     phase_done(7)
 
     # 8. clustering at real size
     clu = phase_clustering(check)
     phase_done(8)
 
-    # 9. kernels line; launches are those of the run of the path that
+    # 9. the iterative profile search at real size
+    it, it_traces = phase_iterative(rcheck)
+    phase_done(9)
+
+    # kernels line; launches are those of the run of the path that
     # launches the kernel: easy-search, ungappedprefilter, the server's
     # process under ungappedprefilter --gpu 1 (gapless_score) and under
     # phase 4's gappedprefilter --gpu 1 (sw_score), gappedprefilter;
     # easy-search's for sw_offset, which has no caller and which phase 3
     # launches; and beside them each kernel's launches on the clustering
-    # path (phase 8's real-size easy-linclust and easy-cluster runs)
+    # path (phase 8's real-size easy-linclust and easy-cluster runs) and on
+    # the iterative search's (phase 9); diag_rescore_profile's are phase
+    # 9's, the path that launches it
     clu_launches = {name: dict(
         easy_linclust=clu["linclust"]["launches"][name],
         easy_cluster=clu["cluster"]["launches"][name])
@@ -2250,7 +2963,10 @@ def main():
         ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
         bound_by=rep["bound_by"], library_ms=None,
         equal=all(r["equal"] for _, r in rows),
-        at=rep["case"], launches_clustering=clu_launches["sw_multi"]), dict(
+        at=rep["case"], launches_clustering=clu_launches["sw_multi"],
+        launches_iterative=it["launches"]["sw_multi"],
+        launches_iterative_by_form=it["launches"]["sw_multi_by_form"]),
+        dict(
         name="diag_rescore", route="cuda",
         source="mmseqs2_tpu_torch/csrc/rescore.cu",
         replaces="mmseqs2_tpu/prefilter/pallas_rescore.py:38",
@@ -2266,7 +2982,25 @@ def main():
         path_trace_launches=easy_trace["diag_rescore"]["launches"],
         path_trace_ms_per_launch=easy_trace["diag_rescore"][
             "trace_ms_per_launch"],
-        launches_clustering=clu_launches["diag_rescore"])]
+        launches_clustering=clu_launches["diag_rescore"],
+        launches_iterative=it["launches"]["diag_rescore"])]
+    prep = next(r for c, r in prows if c["n_cand"] == 1 << 17
+                and "slots" not in c and not c["counted"])
+    pflush = next(r for c, r in prows if c["n_cand"] == 1 << 17
+                  and c.get("slots") == 1 << 21 and c["counted"])
+    kern.append(dict(
+        name="diag_rescore_profile", route="cuda",
+        source="mmseqs2_tpu_torch/csrc/rescore.cu",
+        replaces="mmseqs2_tpu/prefilter/device_stages.py:377",
+        launches=it["launches"]["diag_rescore_profile"],
+        max_abs_err=max(r["max_abs_err"] for _, r in prows),
+        ms=prep["ms"], plain_ms=prep["plain_ms"], bound_ms=prep["bound_ms"],
+        bound_by=prep["bound_by"], library_ms=None,
+        equal=all(r["equal"] for _, r in prows), at=prep["case"],
+        flush_shape_ms=pflush["ms"], flush_shape_bound_ms=pflush["bound_ms"],
+        flush_shape_at=pflush["case"],
+        path_trace=it_traces["prefilter"].get("focus"),
+        launches_clustering=clu_launches["diag_rescore_profile"]))
     replaces = dict(gapless="mmseqs2_tpu/ops/pallas_sw.py:396",
                     gapless_score="mmseqs2_tpu/ops/pallas_sw.py:503",
                     sw_single="mmseqs2_tpu/ops/pallas_sw.py:396",

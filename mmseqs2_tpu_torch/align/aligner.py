@@ -32,6 +32,7 @@ from ..ops.banded import banded_align_scores
 from ..ops.encode import (bucket_length, calc_local_aa_bias, round_bias_i8,
                           make_query_profile)
 from ..ops.sw import pick_form, rows_computed, sw_multi
+from ..profile.io import alignment_profile
 from . import util
 
 SCORE_ONLY = 0
@@ -140,8 +141,25 @@ class Aligner:
         return QueryContext(q_num, cb_i8, profile, bias)
 
     def init_profile_query(self, prof_entry) -> QueryContext:
-        raise NotImplementedError(
-            "profile queries are not yet ported (see ROADMAP.md)")
+        """Query context for a DBTYPE_HMM_PROFILE entry.
+
+        ssw_init profile branch (StripedSmithWaterman.cpp:1388-1407): the
+        column scores are the profile's alignment scores (pssm/4, X row 0,
+        pad rows -2^20), no composition bias, and the byte-kernel bias is
+        |min| over the 20 amino-acid rows only. score_identical and the
+        host backtrace read these columns as they read a sequence query's.
+        """
+        L = prof_entry.length
+        prof = alignment_profile(prof_entry, alpha_pad=ALPHA_PAD,
+                                 alphabet_size=self.submat.alphabet_size)
+        bias = abs(min(0, int(prof[:20, :L].min()))) if L else 0
+        pad = bucket_length(L, BUCKET_MIN) - L
+        if pad:
+            prof = np.pad(prof, ((0, 0), (0, pad)),
+                          constant_values=-(1 << 20))
+        q_num = prof_entry.query_num.astype(np.int64)
+        cb_i8 = np.zeros(L, dtype=np.int8)
+        return QueryContext(q_num, cb_i8, prof.astype(np.int32), bias)
 
     # -- identity shortcut ---------------------------------------------------
 

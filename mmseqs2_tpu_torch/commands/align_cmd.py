@@ -4,8 +4,9 @@ Port of mmseqs2_tpu/commands/align_cmd.py. Reference behavior:
 src/alignment/Alignment.cpp (main loop :248-460, acceptance :389-397, mode
 escalation :28-90) + Matcher::getSWResult. The SW score/endpoint passes run
 on the device per query batch; the banded backtrace runs host-side for
-accepted candidates only. Nucleotide and profile queries and `lcaalign` are
-not yet ported (see ROADMAP.md).
+accepted candidates only; a profile query (DBTYPE_HMM_PROFILE) is aligned
+with its PSSM columns (Aligner.init_profile_query). Nucleotide queries and
+`lcaalign` are not yet ported (see ROADMAP.md).
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ from ..db import dbtype as dbt
 from ..db.reader import DBReader
 from ..db.writer import DBWriter
 from ..ops.evalue import EvalueComputation
+from ..profile.io import parse_profile
 from ..utils import log
 from .common import EncodedDB, get_sub_mat, open_seq_db, parse_prefilter_entry
 
@@ -92,12 +94,11 @@ def align(par, command):
     if query_is_nucl:
         raise NotImplementedError(
             "nucleotide alignment is not yet ported (see ROADMAP.md)")
-    if qreader.base_type == dbt.DBTYPE_HMM_PROFILE:
-        raise NotImplementedError(
-            "profile-query alignment is not yet ported (see ROADMAP.md)")
     submat = get_sub_mat(par, score_bias=par.score_bias)
-    qdb = EncodedDB(qreader, submat)
-    tdb = qdb if same_db else EncodedDB(treader, submat)
+    query_is_profile = qreader.base_type == dbt.DBTYPE_HMM_PROFILE
+    qdb = None if query_is_profile else EncodedDB(qreader, submat)
+    tdb = (qdb if same_db and not query_is_profile
+           else EncodedDB(treader, submat))
     prefdb = DBReader(pref_path)
 
     # mode escalation + realign setup (Alignment.cpp:35-56,90)
@@ -110,6 +111,8 @@ def align(par, command):
     realign_sw_mode = None
     realign_cov = 0.0
     if realign:
+        if query_is_profile:
+            log.die("Cannot realign query profiles")
         realign_sw_mode = init_sw_mode(
             max(alignment_mode, ALIGNMENT_MODE_SCORE_COV), 0.0, 0.0)
         alignment_mode = ALIGNMENT_MODE_SCORE_ONLY
@@ -155,8 +158,13 @@ def align(par, command):
                 continue
             hit_keys, _, _ = parse_prefilter_entry(data)
             qid = qreader.get_id(query_key)
-            ctx = aligner.init_query(qdb.seq_num(qid))
-            q_len = qdb.seq_len(qid)
+            if query_is_profile:
+                prof_entry = parse_profile(qreader.get_data(qid))
+                ctx = aligner.init_profile_query(prof_entry)
+                q_len = prof_entry.length
+            else:
+                ctx = aligner.init_query(qdb.seq_num(qid))
+                q_len = qdb.seq_len(qid)
 
             # canBeCovered pre-gate (counts as a rejection in the replay)
             cand = []

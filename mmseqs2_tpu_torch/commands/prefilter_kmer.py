@@ -1,7 +1,9 @@
 """`prefilter`: the k-mer inverted-index double-diagonal-match prefilter.
 
-Port of mmseqs2_tpu/commands/prefilter_kmer.py for protein sequence queries
-against a protein sequence target DB held whole on one device.
+Port of mmseqs2_tpu/commands/prefilter_kmer.py for protein sequence and
+profile queries against a protein sequence target DB held whole on one
+device, and for sequence queries against a profile target DB (on the host
+matcher, as in the JAX package and the reference).
 
 Reference: src/prefiltering/Prefiltering.cpp: seed matrix VTML80 at 8-bit
 scaling with -0.2 bias, ungapped rescoring matrix at 2-bit (getSubstitutionMatrix
@@ -12,9 +14,9 @@ prefilter/query_matcher.py, output `targetKey \\t diagScore \\t diagonal`.
 
 The batched device matcher (prefilter/device.py) runs whenever diagonal
 scoring is on, on the device that device.get_device() names; the host
-matcher serves --diag-score 0 and is the oracle of the device path. Profile
-and nucleotide DBs, --taxon-list and target-split mode are not yet ported
-(see ROADMAP.md) and raise.
+matcher serves --diag-score 0 and profile targets, and is the oracle of the
+device path. Nucleotide DBs, --taxon-list and target-split mode are not yet
+ported (see ROADMAP.md) and raise.
 """
 
 import os
@@ -32,9 +34,11 @@ from ..device import get_device
 from ..ops.tantan import likelihood_ratio_matrix, mask_batch
 from ..prefilter.device import NOT_PORTED, DevicePrefilter
 from ..prefilter.index_io import index_path_for, load_index, load_index_meta
-from ..prefilter.kmer_generator import KmerGenerator, SubKmerScores
-from ..prefilter.kmer_index import KmerIndexTable
+from ..prefilter.kmer_generator import (KmerGenerator, ProfileKmerGenerator,
+                                        SubKmerScores)
+from ..prefilter.kmer_index import KmerIndexTable, pattern_offsets
 from ..prefilter.query_matcher import QueryMatcher
+from ..profile.io import kmer_rows, parse_profile
 from ..utils import log
 from .common import EncodedDB, open_seq_db
 
@@ -42,11 +46,13 @@ INT_MAX = 2147483647
 
 # Counters of the prefilter stage, summed over every run until reset_stats():
 # host seconds of the index build, of stage-0 (summed over the pool's
-# workers), of dispatching flushes, of waiting for them and of writing hits;
-# flushes, queries, queries matched again by the host oracle, hits written;
-# with RECORD_RESCORE set, one dict per flush's diag_rescore: its slots,
-# valid candidates and the histogram of its windows' lengths
-# (prefilter/device.py: WINDOW_BIN cells a bin).
+# workers; for profile queries mostly their k-mer enumeration), of
+# dispatching flushes, of waiting for them and of writing hits; flushes,
+# queries, queries matched again by the host oracle, hits written, bytes of
+# profile-query rescore profiles uploaded; with RECORD_RESCORE set, one
+# dict per flush's diag_rescore: its slots, valid candidates and the
+# histogram of its windows' lengths (prefilter/device.py: WINDOW_BIN cells
+# a bin).
 STATS = {}
 RECORD_RESCORE = False
 
@@ -55,7 +61,7 @@ def reset_stats():
     STATS.clear()
     STATS.update(index_s=0.0, prep_s=0.0, dispatch_s=0.0, wait_s=0.0,
                  write_s=0.0, flushes=0, queries=0, host_oracle_queries=0,
-                 hits=0, rescore=[])
+                 hits=0, profile_bytes=0, rescore=[])
 
 
 reset_stats()
@@ -110,6 +116,87 @@ def build_index(tdb: EncodedDB, seed, kmer_size: int, kmer_thr: int,
     return table
 
 
+def build_profile_target_index(treader, seed, kmer_size: int,
+                               kmer_thr: int, spaced: bool, pattern: str):
+    """Index over DBTYPE_HMM_PROFILE targets: each profile's windows expand
+    into all k-mers scoring >= kmerThr against the per-position profile rows
+    (IndexBuilder.cpp isProfile branch + IndexTable::addSimilarSequence,
+    IndexTable.h:304-348 — unique k-mer per profile, first position wins).
+    The sequence store holds the profiles' query letters (Sequence.cpp:314)
+    for the ungapped diagonal rescore."""
+    alpha = seed.alphabet_size - 1
+    x_idx = seed.alphabet_size - 1
+    offsets_pat, span = pattern_offsets(kmer_size, spaced, pattern)
+    table = KmerIndexTable(alpha, kmer_size, spaced, pattern)
+    all_kmer, all_seq, all_pos = [], [], []
+    seqs = []
+    for sid in range(treader.size):
+        p = parse_profile(treader.get_data(sid))
+        q_num = p.query_num.astype(np.int64)
+        seqs.append(q_num.astype(np.uint8))
+        ss, si = kmer_rows(p)
+        gen = ProfileKmerGenerator(kmer_size, alpha, ss, si, offsets_pat)
+        n = p.length - span + 1
+        if n <= 0:
+            continue
+        pos = np.arange(n, dtype=np.int64)
+        wins = q_num[pos[:, None] + offsets_pat[None, :]]
+        ok = ~(wins == x_idx).any(axis=1)
+        pos, wins = pos[ok], wins[ok]
+        if len(pos) == 0:
+            continue
+        codes, win_of = gen.generate_all(
+            wins, np.full(len(pos), kmer_thr, np.int64), pos)
+        if len(codes) == 0:
+            continue
+        kpos = pos[win_of]
+        # unique k-mer per profile, first (smallest) position wins
+        order = np.lexsort((kpos, codes))
+        codes, kpos = codes[order], kpos[order]
+        first = np.ones(len(codes), dtype=bool)
+        first[1:] = codes[1:] != codes[:-1]
+        all_kmer.append(codes[first])
+        all_seq.append(np.full(int(first.sum()), sid, np.int64))
+        all_pos.append(kpos[first])
+    kmers = (np.concatenate(all_kmer) if all_kmer
+             else np.zeros(0, np.int64))
+    seqs_a = (np.concatenate(all_seq) if all_seq
+              else np.zeros(0, np.int64))
+    poss = (np.concatenate(all_pos) if all_pos
+            else np.zeros(0, np.int64))
+    order = np.argsort(kmers, kind="stable")
+    kmers, seqs_a, poss = kmers[order], seqs_a[order], poss[order]
+    table.sparse = table.table_size > (1 << 26)
+    if table.sparse:
+        table.uniq_kmers, counts = (np.unique(kmers, return_counts=True)
+                                    if len(kmers)
+                                    else (np.zeros(0, np.int64),
+                                          np.zeros(0, np.int64)))
+        table.offsets = np.concatenate([[0], np.cumsum(counts)]).astype(
+            np.int64)
+    else:
+        counts = np.bincount(kmers, minlength=table.table_size) \
+            if len(kmers) else np.zeros(table.table_size, dtype=np.int64)
+        table.offsets = np.concatenate([[0], np.cumsum(counts)]).astype(
+            np.int64)
+    table.entries_seq = seqs_a
+    table.entries_pos = poss.astype(np.uint16)
+    table.masked_seqs = seqs
+    return table
+
+
+def profile_query(p, k, alpha, offsets_pat):
+    """A profile query's k-mer generator (its rankedDescSort20 rows) and its
+    (L, alpha + 1) diagonal-rescore profile: pssm/4 truncated toward zero on
+    the 20 amino-acid columns, X column 0."""
+    ss, si = kmer_rows(p)
+    gen = ProfileKmerGenerator(k, alpha, ss, si, offsets_pat)
+    s = p.scores.astype(np.int64)
+    rescore = np.zeros((p.length, alpha + 1), dtype=np.int64)
+    rescore[:, :20] = np.sign(s) * (np.abs(s) // 4)
+    return gen, rescore
+
+
 def prefilter_kmer(par, command):
     qdb_path, tdb_path, out_path = par.filenames[:3]
     same_db = qdb_path == tdb_path
@@ -120,12 +207,11 @@ def prefilter_kmer(par, command):
         if reader.base_type == dbt.DBTYPE_NUCLEOTIDES:
             raise NotImplementedError(
                 f"the nucleotide prefilter {NOT_PORTED}")
-        if reader.base_type == dbt.DBTYPE_HMM_PROFILE:
-            raise NotImplementedError(
-                f"the profile prefilter {NOT_PORTED}")
+    query_is_profile = qreader.base_type == dbt.DBTYPE_HMM_PROFILE
+    target_is_profile = treader.base_type == dbt.DBTYPE_HMM_PROFILE
     if par.taxon_list:
         raise NotImplementedError(f"prefilter --taxon-list {NOT_PORTED}")
-    if par.diag_score:
+    if par.diag_score and not target_is_profile:
         n_splits = par.split if par.split_mode in (0, 2) else 0
         if n_splits == 0 and par.split_mode in (0, 2):
             # setupSplit analogue (Prefiltering.cpp:287-310): pick the
@@ -136,16 +222,22 @@ def prefilter_kmer(par, command):
             raise NotImplementedError(
                 f"target-split mode ({n_splits} splits of the target DB) "
                 f"{NOT_PORTED}")
-    seed = get_submat(par.seed_sub_mat.aa, 8.0, -0.2)
+    if query_is_profile:
+        # profile queries use the scoring matrix for target background only
+        # (Prefiltering.cpp:72-77); index k-mer threshold is 0 (:555-557)
+        seed = get_submat(par.sub_mat.aa, 8.0, -0.2)
+    else:
+        seed = get_submat(par.seed_sub_mat.aa, 8.0, -0.2)
     ungapped = get_submat(par.sub_mat.aa, 2.0, -0.2)
-    qdb = EncodedDB(qreader, seed)
-    tdb = qdb if same_db else EncodedDB(treader, seed)
+    qdb = None if query_is_profile else EncodedDB(qreader, seed)
+    tdb = (qdb if same_db and not query_is_profile
+           else EncodedDB(treader, seed))
 
     # prebuilt-index parameter adoption (Prefiltering.cpp:111-160): flags
     # the user did NOT set take the index's values, so a `<db>.idx` built
     # at another sensitivity/k is used instead of triggering a rebuild
     idx_path = index_path_for(tdb_path)
-    if idx_path is not None:
+    if idx_path is not None and not target_is_profile:
         try:
             _m = load_index_meta(idx_path)
             if not bool(_m.get("nucl", 0)):
@@ -162,21 +254,40 @@ def prefilter_kmer(par, command):
             log.warning(f"ignoring unreadable index {idx_path}: {e}")
 
     kmer_size = par.kmer_size or compute_kmer_size(treader.total_residues())
-    kmer_thr = get_kmer_threshold(par.sensitivity, kmer_size, par.k_score.aa)
+    kmer_thr = get_kmer_threshold(
+        par.sensitivity, kmer_size, par.k_score.aa,
+        is_profile=query_is_profile or target_is_profile)
     log.info(f"k-mer similarity threshold: {kmer_thr} (k = {kmer_size})")
 
     # exact k-mer matching (takeOnlyBestKmer, Prefiltering.cpp:188-192)
-    take_only_best = par.exact_kmer_matching == 1
+    take_only_best = (par.exact_kmer_matching == 1
+                      or (target_is_profile and not query_is_profile))
 
     spaced = par.spaced_kmer_mode == 1
     alpha = seed.alphabet_size - 1
     t0 = time.perf_counter()
+    if target_is_profile:
+        # profile targets run on the host matcher (the reference's and the
+        # JAX package's route)
+        table = build_profile_target_index(
+            treader, seed, kmer_size, kmer_thr, spaced,
+            par.spaced_kmer_pattern)
+        STATS["index_s"] += time.perf_counter() - t0
+        log.info(f"Index table: {len(table.entries_seq)} k-mer positions")
+        matcher = QueryMatcher(
+            table, seed, ungapped, kmer_thr, kmer_size, par.max_seqs,
+            par.comp_bias_corr, par.comp_bias_corr_scale,
+            par.min_ungapped_score, None,
+            take_only_best_kmer=take_only_best, is_nucleotide=False)
+        return _run_host(par, qreader, treader, qdb, matcher,
+                         query_is_profile, same_db, out_path, alpha)
+    index_thr = 0 if query_is_profile else kmer_thr
     table = None
     if idx_path is not None:
         try:
             cand, meta = load_index(idx_path)
             if (cand.k == kmer_size and cand.alpha == alpha
-                    and meta.get("kmer_thr") == kmer_thr
+                    and meta.get("kmer_thr") == index_thr
                     and meta.get("spaced") == int(spaced)
                     and meta.get("mask") == int(par.mask)):
                 table = cand
@@ -187,14 +298,14 @@ def prefilter_kmer(par, command):
         except Exception as e:            # corrupt/old index: rebuild
             log.warning(f"Failed to load prebuilt index {idx_path}: {e}")
     if table is None:
-        table = build_index(tdb, seed, kmer_size, kmer_thr,
+        table = build_index(tdb, seed, kmer_size, index_thr,
                             par.mask == 1, par.mask_prob,
                             par.mask_lower_case == 1, spaced,
                             par.spaced_kmer_pattern)
     log.info(f"Index table: {len(table.entries_seq)} k-mer positions")
 
-    if take_only_best:
-        generator = None      # exact match only
+    if query_is_profile or take_only_best:
+        generator = None      # per-query rows / exact match only
     else:
         three = SubKmerScores(seed.sub_matrix, alpha, 3).attach_disk_cache()
         two = SubKmerScores(seed.sub_matrix, alpha, 2).attach_disk_cache()
@@ -210,15 +321,16 @@ def prefilter_kmer(par, command):
     # the batched device matcher serves diagonal scoring; the host numpy
     # matcher stays the oracle (and handles --diag-score 0)
     if not par.diag_score:
-        return _run_host(par, qreader, treader, qdb, matcher, same_db,
-                         out_path)
+        return _run_host(par, qreader, treader, qdb, matcher,
+                         query_is_profile, same_db, out_path, alpha)
     dev = DevicePrefilter(
         table, seed, ungapped, kmer_thr, kmer_size, par.max_seqs,
         par.comp_bias_corr, par.comp_bias_corr_scale,
         par.min_ungapped_score, generator,
         take_only_best_kmer=take_only_best, host_fallback=matcher)
     dev.record_rescore = RECORD_RESCORE
-    return _run_device(par, qreader, treader, qdb, dev, same_db, out_path)
+    return _run_device(par, qreader, treader, qdb, dev, query_is_profile,
+                       same_db, out_path, alpha)
 
 
 def _write_hits(writer, par, treader, q_key, q_len, hits):
@@ -244,7 +356,8 @@ def _identity_id(par, qreader, treader, same_db, q_key):
     return -1
 
 
-def _run_device(par, qreader, treader, qdb, dev, same_db, out_path):
+def _run_device(par, qreader, treader, qdb, dev, query_is_profile, same_db,
+                out_path, alpha):
     """Batched device prefilter: accumulate prepared queries until the hit
     budget fills, then enqueue one device match per batch, two flushes in
     flight."""
@@ -253,6 +366,7 @@ def _run_device(par, qreader, treader, qdb, dev, same_db, out_path):
     reslens = []
     pending = []                 # [(items, pending-handle)]
     oracle0 = dev.host_oracle_queries
+    bytes0 = dev.profile_bytes
 
     def write_batch(items, hit_lists):
         for b, hits in zip(items, hit_lists):
@@ -263,9 +377,11 @@ def _run_device(par, qreader, treader, qdb, dev, same_db, out_path):
         nonlocal batch, budget
         if batch:
             t0 = time.perf_counter()
+            rps = [b["rp"] for b in batch] if query_is_profile else None
+            gens = [b["gen"] for b in batch] if query_is_profile else None
             pend = dev.match_batch_async(
                 [b["q"] for b in batch], [b["ident"] for b in batch],
-                prepared=[b["prep"] for b in batch])
+                rps, gens, prepared=[b["prep"] for b in batch])
             STATS["dispatch_s"] += time.perf_counter() - t0
             STATS["flushes"] += 1
             pending.append((batch, pend))
@@ -284,13 +400,23 @@ def _run_device(par, qreader, treader, qdb, dev, same_db, out_path):
 
     def make_item(qid):
         q_key = qreader.get_db_key(qid)
-        return {"key": q_key, "q": qdb.seq_num(qid),
-                "ident": _identity_id(par, qreader, treader, same_db, q_key),
-                "qlen": float(qreader.get_seq_len(qid))}
+        item = {"key": q_key,
+                "ident": _identity_id(par, qreader, treader, same_db, q_key)}
+        if query_is_profile:
+            p = parse_profile(qreader.get_data(qid))
+            item["gen"], item["rp"] = profile_query(
+                p, dev.k, alpha, dev.index.offsets_pat)
+            item["q"] = p.query_num.astype(np.int64)
+            item["qlen"] = float(p.length)
+        else:
+            item["q"] = qdb.seq_num(qid)
+            item["qlen"] = float(qreader.get_seq_len(qid))
+        return item
 
     def prep(item):
         t0 = time.perf_counter()
-        item["prep"] = dev.prepare_query(item["q"])
+        item["prep"] = dev.prepare_query(item["q"], item.get("rp"),
+                                         item.get("gen"))
         item["prep_s"] = time.perf_counter() - t0
         return item
 
@@ -298,7 +424,8 @@ def _run_device(par, qreader, treader, qdb, dev, same_db, out_path):
         # prepared up front (threaded) so the flush decision sees the
         # ACTUAL expansion volume
         nonlocal batch, budget
-        STATS["prep_s"] += item.pop("prep_s")
+        prep_s = item.pop("prep_s")
+        STATS["prep_s"] += prep_s
         vol = len(item["prep"][5])
         if batch and (budget + vol > dev.H_CAP_FIXED
                       or len(batch) >= dev.B_PAD):
@@ -320,6 +447,7 @@ def _run_device(par, qreader, treader, qdb, dev, same_db, out_path):
     writer.close()
     STATS["queries"] += qreader.size
     STATS["host_oracle_queries"] += dev.host_oracle_queries - oracle0
+    STATS["profile_bytes"] += dev.profile_bytes - bytes0
     STATS["hits"] += sum(reslens)
     STATS["rescore"] += dev.rescore_log
     _print_statistics(None, reslens, qreader.size, par.max_seqs)
@@ -388,19 +516,29 @@ def _print_statistics(stats_acc, reslens, n_queries, max_results):
              "result lists")
 
 
-def _run_host(par, qreader, treader, qdb, matcher, same_db, out_path):
+def _run_host(par, qreader, treader, qdb, matcher, query_is_profile,
+              same_db, out_path, alpha):
     """Per-query host (numpy oracle) matching loop."""
     writer = DBWriter(out_path, dbt.DBTYPE_PREFILTER_RES)
     stats_acc = [0.0, 0, 0]
     reslens = []
     for qid in range(qreader.size):
         q_key = qreader.get_db_key(qid)
-        hits = matcher.match(
-            qdb.seq_num(qid),
-            _identity_id(par, qreader, treader, same_db, q_key),
-            diagonal_scoring=bool(par.diag_score))
-        reslens.append(_write_hits(writer, par, treader, q_key,
-                                   float(qreader.get_seq_len(qid)), hits))
+        identity_id = _identity_id(par, qreader, treader, same_db, q_key)
+        if query_is_profile:
+            p = parse_profile(qreader.get_data(qid))
+            gen, rescore = profile_query(
+                p, matcher.k, alpha, matcher.index.offsets_pat)
+            hits = matcher.match(p.query_num.astype(np.int64), identity_id,
+                                 diagonal_scoring=bool(par.diag_score),
+                                 rescore_profile=rescore, generator=gen)
+            q_len = float(p.length)
+        else:
+            hits = matcher.match(qdb.seq_num(qid), identity_id,
+                                 diagonal_scoring=bool(par.diag_score))
+            q_len = float(qreader.get_seq_len(qid))
+        reslens.append(_write_hits(writer, par, treader, q_key, q_len,
+                                   hits))
         stats_acc[0] += matcher.stats.kmers_per_pos
         stats_acc[1] += matcher.stats.db_matches
         stats_acc[2] += matcher.stats.double_matches

@@ -1,21 +1,28 @@
 """`search` workflow: prefilter -> align (blastp.sh equivalent).
 
 Port of mmseqs2_tpu/commands/search.py: the protein-vs-protein path with
-single and multi sensitivity stepping. Reference: src/workflow/Search.cpp
-(mode matrix :33-123, parameter wiring :544-629) + data/workflow/blastp.sh.
+single and multi sensitivity stepping, the iterative profile search
+(--num-iterations, blastpgp.sh), sequence queries against profile targets
+(searchtargetprofile.sh) and the sliced search (--exhaustive-search,
+searchslicedtargetprofile.sh). Reference: src/workflow/Search.cpp (mode
+matrix :33-123, parameter wiring :544-629) + data/workflow/blastp.sh.
 --prefilter-mode: 0 k-mer index (default), 1 exhaustive ungapped, 2
 exhaustive (all-vs-all fake prefilter), mirroring Parameters::PREF_MODE_*;
-1 and 2 both run `ungappedprefilter`, as in the JAX package. The sliced,
-target-profile, nucleotide, translated and iterative searches, --lca-search
-and --prefilter-mode 3 are not yet ported (see ROADMAP.md) and raise.
---alignment-mode 4 runs `rescorediagonal` in place of `align`.
+1 and 2 both run `ungappedprefilter`, as in the JAX package. The nucleotide
+and translated searches, --lca-search and --prefilter-mode 3 are not yet
+ported (see ROADMAP.md) and raise. --alignment-mode 4 runs
+`rescorediagonal` in place of `align`.
 """
+
+import os
+import shutil
 
 from ..db import dbtype as dbt
 from ..db.reader import DBReader
 from ..db.writer import DBWriter
 from ..workflow import Workflow
 from ..workflow.engine import not_exists
+from .kmermatcher import _parse_mem_limit
 
 PREF_MODE_KMER = 0
 PREF_MODE_UNGAPPED = 1
@@ -31,32 +38,43 @@ def _not_ported(what):
 
 def search(par, command):
     qdb, tdb, out_aln, tmp = par.filenames[:4]
+    wf = Workflow(tmp, par.force_reuse)
 
     q_type = DBReader(qdb).base_type
     t_type = DBReader(tdb).base_type
+    t_profile = (t_type == dbt.DBTYPE_HMM_PROFILE
+                 and q_type != dbt.DBTYPE_HMM_PROFILE)
 
     # EasySearch/Search set SCORE_COV_SEQID; plain search defaults SCORE_COV
     if not par.was_set("alignment_mode") and not par.add_backtrace:
         par.set("alignment_mode", 2)
 
+    # --exhaustive-search: sliced inverted search (Search.cpp:357-399)
     if par.exhaustive_search:
-        _not_ported("search --exhaustive-search (the sliced search)")
-    if dbt.DBTYPE_HMM_PROFILE in (q_type, t_type):
-        _not_ported("the profile search")
+        return _search_sliced(par, wf, qdb, tdb, out_aln)
+
+    # target-profile search (searchtargetprofile.sh): prefilter against the
+    # profile-target index, align in the swapped (profile-query) direction,
+    # swap back (Search.cpp:453-476). The prefilter runs at its own default
+    # sensitivity (the workflow passes no -s).
+    if t_profile and not par.was_set("sensitivity"):
+        return _search_target_profile(par, wf, qdb, tdb, out_aln)
+
+    # search raises the default prefilter sensitivity (Search.cpp:24)
+    if not par.was_set("sensitivity"):
+        par.set("sensitivity", 5.7)
+    if t_profile:
+        return _search_target_profile(par, wf, qdb, tdb, out_aln)
+
     if dbt.DBTYPE_NUCLEOTIDES in (q_type, t_type):
         _not_ported("the nucleotide and translated search")
     if par.num_iterations > 1:
-        _not_ported("the iterative profile search (--num-iterations)")
+        return _search_iterative(par, wf, qdb, tdb, out_aln)
     if par.prefilter_mode not in PREF_COMMANDS:
         _not_ported(f"search --prefilter-mode {par.prefilter_mode}")
     if par.lca_search:
         _not_ported("search --lca-search (lcaalign)")
 
-    # search raises the default prefilter sensitivity (Search.cpp:24)
-    if not par.was_set("sensitivity"):
-        par.set("sensitivity", 5.7)
-
-    wf = Workflow(tmp, par.force_reuse)
     sens_steps = par.sens_steps if par.was_set("start_sens") else 1
     target_sens = par.sensitivity
     start_sens = min(par.start_sens, target_sens)
@@ -135,3 +153,207 @@ def _merge_alignments(qdb_path, aln_paths, out_path):
     for r in readers:
         r.close()
     q.close()
+
+
+def _search_iterative(par, wf, qdb, tdb, out_aln):
+    """PSI-BLAST-style iterative profile search.
+
+    Reference: data/workflow/blastpgp.sh + Search.cpp:477-525. Per
+    iteration: prefilter -> subtract previously-aligned targets -> align ->
+    merge into the running alignment set -> result2profile becomes the next
+    query. Iteration 0 aligns with --realign; intermediate iterations use
+    min(-e, --e-profile) as the alignment E-value threshold; the last
+    restores the caller's -e. subtractdbs keeps the pre-loop threshold
+    (SUBSTRACT_PAR is built before the E-value override, Search.cpp:478).
+    """
+    num_it = par.num_iterations
+    original_eval = par.evalue
+    eval_profile = min(par.evalue, par.e_profile)
+
+    current_q = qdb
+    for step in range(num_it):
+        last = step == num_it - 1
+        step_eval = original_eval if last else eval_profile
+
+        if step == 0:
+            pref = wf.path("pref_0")
+            wf.step(pref, "prefilter",
+                    [current_q, tdb, pref, "-s", par.sensitivity], par)
+        else:
+            pref_tmp = wf.path(f"pref_tmp_{step}")
+            wf.step(pref_tmp, "prefilter",
+                    [current_q, tdb, pref_tmp, "-s", par.sensitivity], par)
+            pref = wf.path(f"pref_{step}")
+            wf.step(pref, "subtractdbs",
+                    [pref_tmp, wf.path(f"aln_{step - 1}"), pref,
+                     "-e", original_eval, "--e-profile", par.e_profile],
+                    par)
+
+        aln_tmp = wf.path("aln_0" if step == 0 else f"aln_tmp_{step}")
+        align_args = [current_q, tdb, pref, aln_tmp,
+                      "-e", step_eval, "-a", "1",
+                      "--realign", "1" if step == 0 else "0"]
+        wf.step(aln_tmp, "align", align_args, par)
+
+        if step == 0:
+            aln = aln_tmp
+        else:
+            aln = out_aln if last else wf.path(f"aln_{step}")
+            wf.step(aln, "mergedbs",
+                    [current_q, aln, wf.path(f"aln_{step - 1}"), aln_tmp],
+                    par)
+
+        if not last:
+            profdb = wf.path(f"profile_{step}")
+            wf.step(profdb, "result2profile",
+                    [current_q, tdb, aln, profdb, "-e", eval_profile], par)
+            current_q = profdb
+
+    if par.remove_tmp_files:
+        wf.cleanup(True)
+    return 0
+
+
+def _search_sliced(par, wf, qdb, tdb, out_aln):
+    """`--exhaustive-search`: sliced inverted search through a large target
+    (typically profile) DB.
+
+    Reference: data/workflow/searchslicedtargetprofile.sh +
+    src/workflow/Search.cpp:357-399.  The evalue threshold is corrected by
+    |Q|/|T| for the inverted direction, the coverage mode is swapped, and
+    the prefilter max result list is max(300, |Q|).  The target index is
+    processed in disk-budgeted slices: prefilter slice-vs-query, align in
+    cluster-output mode, optionally filterresult, merge.  A final align
+    (top max-seqs per target) and swapresults (no evalue cut) restore the
+    query direction.
+    """
+    if not par.was_set("sensitivity"):
+        par.set("sensitivity", 5.7)
+    q_size = sum(1 for _ in open(qdb + ".index", "rb"))
+    orig_eval = par.evalue
+    orig_cov = par.cov_mode
+    t_index = os.path.abspath(tdb) + ".index"
+    with open(t_index, "rb") as f:
+        index_lines = f.readlines()
+    total = len(index_lines)
+    par.set("evalue", par.evalue * (float(q_size) / total))
+    par.set("cov_mode", {1: 2, 2: 1}.get(orig_cov, orig_cov))
+    ungapped = par.alignment_mode == 4  # ALIGNMENT_MODE_UNGAPPED
+
+    profdb = wf.path("profileDB")
+    tdb_abs = os.path.abspath(tdb)
+    for suf in ("", ".dbtype"):
+        if os.path.lexists(profdb + suf):
+            os.unlink(profdb + suf)
+        os.symlink(tdb_abs + suf, profdb + suf)
+
+    avail_disk = _parse_mem_limit(par.disk_space_limit)
+    # prefilter result line budget (searchslicedtargetprofile.sh RESSIZE)
+    RESSIZE = 25
+    saturate = max(1, q_size)
+    first = 0
+    prev_results = 0
+    aln_merged = wf.path("aln_merged")
+    aln = wf.path("aln")
+    pref = wf.path("pref")
+    while first < total:
+        if prev_results > 0:
+            saturate = max(1, prev_results // first)
+        if avail_disk:
+            budget = avail_disk
+        else:
+            budget = shutil.disk_usage(wf.tmp).free // 2
+        n_in_step = max(1, budget // saturate // RESSIZE)
+        last = min(total, first + n_in_step)
+        with open(profdb + ".index", "wb") as f:
+            f.writelines(index_lines[first:last])
+
+        orig_max = par.max_seqs
+        par.set("max_seqs", max(300, q_size))
+        wf.step_always("prefilter", [profdb, qdb, pref], par)
+        par.set("max_seqs", orig_max)
+
+        pr = DBReader(pref)
+        prev_results += sum(pr.get_data(i).count(b"\n")
+                            for i in range(pr.size))
+        pr.close()
+        first = last
+
+        if ungapped:
+            orig_rm = par.rescore_mode
+            par.set("rescore_mode", 2)
+            wf.step_always("rescorediagonal", [profdb, qdb, pref, aln], par)
+            par.set("rescore_mode", orig_rm)
+        else:
+            orig_om = par.alignment_output_mode
+            par.set("alignment_output_mode", 1)
+            wf.step_always("align", [profdb, qdb, pref, aln], par)
+            par.set("alignment_output_mode", orig_om)
+        _rmdb(pref)
+
+        if par.exhaustive_search_filter == 1:
+            filt = wf.path("aln_filt")
+            wf.step_always("filterresult", [profdb, qdb, aln, filt], par)
+            _rmdb(aln)
+            _mvdb(filt, aln)
+
+        if os.path.exists(aln_merged + ".dbtype"):
+            merged_new = wf.path("aln_merged_new")
+            wf.step_always("mergedbs", [tdb, merged_new, aln_merged, aln],
+                           par)
+            _rmdb(aln_merged)
+            _mvdb(merged_new, aln_merged)
+            _rmdb(aln)
+        else:
+            _mvdb(aln, aln_merged)
+
+    aln_final = wf.path("aln_final")
+    if ungapped:
+        orig_rm = par.rescore_mode
+        par.set("rescore_mode", 2)
+        wf.step(aln_final, "rescorediagonal",
+                [tdb, qdb, aln_merged, aln_final], par)
+        par.set("rescore_mode", orig_rm)
+    else:
+        wf.step(aln_final, "align", [tdb, qdb, aln_merged, aln_final], par)
+    # swapresults must not re-filter by evalue (Search.cpp:381-383)
+    par.set("evalue", 1.7976931348623157e308)
+    wf.step(out_aln, "swapresults", [tdb, qdb, aln_final, out_aln], par)
+    par.set("evalue", orig_eval)
+    par.set("cov_mode", orig_cov)
+    if par.remove_tmp_files:
+        wf.cleanup(True)
+    return 0
+
+
+def _rmdb(path):
+    for suf in ("", ".index", ".dbtype"):
+        if os.path.exists(path + suf):
+            os.remove(path + suf)
+
+
+def _mvdb(src, dst):
+    for suf in ("", ".index", ".dbtype"):
+        if os.path.exists(src + suf):
+            os.replace(src + suf, dst + suf)
+
+
+def _search_target_profile(par, wf, qdb, tdb, out_aln):
+    """Sequence queries vs profile targets (searchtargetprofile.sh)."""
+    INT_MAX = 2147483647
+    pref = wf.path("pref")
+    wf.step(pref, "prefilter", [qdb, tdb, pref], par)
+    wf.step(wf.path("pref_swapped"), "swapresults",
+            [qdb, tdb, pref, wf.path("pref_swapped")], par)
+    # align all swapped hits; coverage mode swaps with the direction
+    orig_cov = par.cov_mode
+    par.set("cov_mode", {1: 2, 2: 1}.get(orig_cov, orig_cov))
+    wf.step(wf.path("aln_swapped"), "align",
+            [tdb, qdb, wf.path("pref_swapped"), wf.path("aln_swapped"),
+             "--max-seqs", str(INT_MAX)], par)
+    par.set("cov_mode", orig_cov)
+    wf.step(out_aln, "swapresults",
+            [tdb, qdb, wf.path("aln_swapped"), out_aln], par)
+    if par.remove_tmp_files:
+        wf.cleanup(True)
+    return 0

@@ -16,6 +16,23 @@
 // valid count and n = 0 give 0. The caller caps at 255 where it needs the
 // capped score; nothing is rescored twice.
 //
+// The profile form (B4', diag_rescore_profile_launch) is the same kernel,
+// instantiated with PROFILE = true: only a cell's score changes,
+//
+//   s_l = prof[qid, qs + l, t_cat[t_off[id] + ts + l]]
+//
+// with prof (n_q, lq, 32) int8, one 32-byte row (one sector) a query
+// position. It replaces the XLA program device_stages.make_rescore under
+// _chunked_rescore, which _device_match (prefilter/device.py:96) runs for
+// profile queries: pallas_rescore.py:_kernel never had a profile form. Its
+// bound, by the same count: each window's target bytes and its profile
+// rows read once, n x (1 + 32) bytes a window of n cells, at 3.35 TB/s.
+// The windows, the valid count, stale slots and the zero-fill are the
+// letters form's. Each cell reads its score byte from its window's row
+// (rows + l x 32 + letter); a lane's 16 rows are 512 contiguous bytes. That
+// is a simple first design: staging a window's rows in shared memory is
+// later work.
+//
 // The valid count. The prefilter's candidate stage front-compacts its
 // candidates into a buffer of the flush's own slot count (2^21 on the main
 // path, of which about 1% hold candidates) and knows the count only on the
@@ -108,9 +125,11 @@ struct Args {
     long long t_bytes;
     const long long* t_off;
     const int* t_len;
-    const uint8_t* q_let;
-    const uint8_t* corr;         // int8 values
+    const uint8_t* q_let;        // letters form: the query letters
+    const uint8_t* corr;         // letters form: int8 corrections
+    const int8_t* prof;          // profile form: (n_q, lq, 32) int8
     long long q_bytes;           // bytes of q_let and of corr: n_q * lq
+                                 // (letters form only)
     int lq;
     const int* q_len;
     const int* submat;
@@ -159,13 +178,18 @@ struct Words {
     uint32_t t[NW], q[NW], c[NW];
 };
 
+// The profile form loads only the target letters: its scores are read
+// from the window's profile rows while the run is scored.
+template <bool PROFILE>
 __device__ __forceinline__ void load_pass(const Args& a, const uint8_t* tp,
                                           const uint8_t* qp,
                                           const uint8_t* cp, int o,
                                           Words& w) {
     load_run(tp + o, a.t_cat, a.t_bytes, w.t);
-    load_run(qp + o, a.q_let, a.q_bytes, w.q);
-    load_run(cp + o, a.corr, a.q_bytes, w.c);
+    if (!PROFILE) {
+        load_run(qp + o, a.q_let, a.q_bytes, w.q);
+        load_run(cp + o, a.corr, a.q_bytes, w.c);
+    }
 }
 
 // The summary of the first `kk` of a lane's K cells; the rest score 0,
@@ -174,24 +198,37 @@ __device__ __forceinline__ void load_pass(const Args& a, const uint8_t* tp,
 // their letters unpacked into the 16-bit halves of one word, so that one
 // shift and one add give both byte offsets into the 32-wide matrix table
 // (q * 128 + t * 4 < 4,096); the prefix max and the best take both cells'
-// values in one three-way max (DPX).
+// values in one three-way max (DPX). The profile form reads cell k's score
+// from rows[k * 32 + letter], rows being the run's first profile row, for
+// the cells inside the window only.
+template <bool PROFILE>
 __device__ __forceinline__ Summary score_run(const Words& w, int kk,
-                                             const int* lut) {
+                                             const int* lut,
+                                             const int8_t* rows) {
     const char* base = reinterpret_cast<const char*>(lut);
     Summary r = {0, 0, 0, 0};
 #pragma unroll
     for (int k = 0; k < K; k += 2) {
-        const unsigned sel = (k & 2) ? 0x4342u : 0x4140u;
-        const unsigned t2 = __byte_perm(w.t[k >> 2], 0, sel);
-        const unsigned q2 = __byte_perm(w.q[k >> 2], 0, sel);
-        const unsigned off = (q2 << 7) + (t2 << 2);
-        const int sh = 8 * (k & 3);
-        int s1 = *reinterpret_cast<const int*>(base + (off & 0xffff))
+        int s1, s2;
+        if (PROFILE) {
+            const unsigned tw = w.t[k >> 2] >> (8 * (k & 3));
+            s1 = k < kk ? (int)__ldg(rows + k * 32 + (tw & 31)) : 0;
+            s2 = k + 1 < kk
+                     ? (int)__ldg(rows + (k + 1) * 32 + ((tw >> 8) & 31))
+                     : 0;
+        } else {
+            const unsigned sel = (k & 2) ? 0x4342u : 0x4140u;
+            const unsigned t2 = __byte_perm(w.t[k >> 2], 0, sel);
+            const unsigned q2 = __byte_perm(w.q[k >> 2], 0, sel);
+            const unsigned off = (q2 << 7) + (t2 << 2);
+            const int sh = 8 * (k & 3);
+            s1 = *reinterpret_cast<const int*>(base + (off & 0xffff))
                  + (int)(int8_t)(w.c[k >> 2] >> sh);
-        int s2 = *reinterpret_cast<const int*>(base + (off >> 16))
+            s2 = *reinterpret_cast<const int*>(base + (off >> 16))
                  + (int)(int8_t)(w.c[k >> 2] >> (sh + 8));
-        if (k >= kk) s1 = 0;
-        if (k + 1 >= kk) s2 = 0;
+            if (k >= kk) s1 = 0;
+            if (k + 1 >= kk) s2 = 0;
+        }
         const int S1 = r.S + s1;
         r.S = S1 + s2;
         r.maxc = __vimax3_s32(r.maxc, S1, r.S);
@@ -204,7 +241,9 @@ __device__ __forceinline__ Summary score_run(const Words& w, int kk,
 
 // The best segment of a group's window of n cells (n = 0: no candidate),
 // every lane of the warp calling together. Passes of G K cells, the next
-// pass's words asked for before this one is scored.
+// pass's words asked for before this one is scored. The profile form's qp is
+// the window's first profile row (cp unused).
+template <bool PROFILE>
 __device__ __forceinline__ int score_window(const Args& a, const int* lut,
                                             int n, const uint8_t* tp,
                                             const uint8_t* qp,
@@ -218,16 +257,18 @@ __device__ __forceinline__ int score_window(const Args& a, const int* lut,
     int o = gl * K;
     int kk = min(max(n - o, 0), K);
     Words w = {};
-    if (kk > 0) load_pass(a, tp, qp, cp, o, w);
+    if (kk > 0) load_pass<PROFILE>(a, tp, qp, cp, o, w);
 #pragma unroll 2
     for (int base = 0; base < n_warp; base += G * K) {
         const int o_next = o + G * K;
         const int kk_next = min(max(n - o_next, 0), K);
         Words w_next = {};
-        if (kk_next > 0) load_pass(a, tp, qp, cp, o_next, w_next);
+        if (kk_next > 0) load_pass<PROFILE>(a, tp, qp, cp, o_next, w_next);
         Summary r = {0, 0, 0, 0};
+        const int8_t* rows = reinterpret_cast<const int8_t*>(qp) + o * 32;
         if (kk > 0)
-            r = kk == K ? score_run(w, K, lut) : score_run(w, kk, lut);
+            r = kk == K ? score_run<PROFILE>(w, K, lut, rows)
+                        : score_run<PROFILE>(w, kk, lut, rows);
         // exclusive sum-scan of S: the running sum P before the run
         int x = r.S;
 #pragma unroll
@@ -321,13 +362,18 @@ __device__ __forceinline__ Window window_of(const Args& a, const Fields& f) {
     return w;
 }
 
+template <bool PROFILE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 rescore_kernel(const Args a) {
-    // the matrix 32 wide, zero outside A x A: lut[q * 32 + t]
+    // the matrix 32 wide, zero outside A x A: lut[q * 32 + t] (letters
+    // form only)
     __shared__ int lut[MAX_ALPHA * MAX_ALPHA];
-    for (int i = threadIdx.x; i < MAX_ALPHA * MAX_ALPHA; i += THREADS) {
-        const int q = i / MAX_ALPHA, t = i % MAX_ALPHA;
-        lut[i] = q < a.alpha && t < a.alpha ? a.submat[q * a.alpha + t] : 0;
+    if (!PROFILE) {
+        for (int i = threadIdx.x; i < MAX_ALPHA * MAX_ALPHA; i += THREADS) {
+            const int q = i / MAX_ALPHA, t = i % MAX_ALPHA;
+            lut[i] =
+                q < a.alpha && t < a.alpha ? a.submat[q * a.alpha + t] : 0;
+        }
     }
     const bool counted = a.n_valid != nullptr;
     const int n_eff =
@@ -368,9 +414,12 @@ rescore_kernel(const Args a) {
             const long long q = __shfl_sync(full, win.q, src);
 #pragma unroll
             for (int i = 0; i < NPW; ++i) vm &= vm - 1;
-            const int best = score_window(
-                a, lut, has ? n : 0, a.t_cat + t, a.q_let + q, a.corr + q,
-                lane);
+            const uint8_t* qp =
+                PROFILE ? reinterpret_cast<const uint8_t*>(a.prof) + q * 32
+                        : a.q_let + q;
+            const int best = score_window<PROFILE>(
+                a, lut, has ? n : 0, a.t_cat + t, qp,
+                PROFILE ? nullptr : a.corr + q, lane);
             if (has && (lane & (G - 1)) == 0) a.out[c0 + pick] = best;
         }
         f = f_next;
@@ -380,18 +429,19 @@ rescore_kernel(const Args a) {
     zero_fill(a.out, n_eff, a.n_cand);
 }
 
-// Blocks the card holds at once, asked once per device and kept.
-static int g_blocks[MAX_DEVICES];
+// Blocks the card holds at once, asked once per device and form and kept.
+static int g_blocks[2][MAX_DEVICES];
 
+template <bool PROFILE>
 static int grid_blocks(int dev, int* out) {
-    int& cached = g_blocks[dev];
+    int& cached = g_blocks[PROFILE][dev];
     if (cached == 0) {
         int sms = 0, per_sm = 0;
         cudaError_t e =
             cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         if (e != cudaSuccess) return (int)e;
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, rescore_kernel, THREADS, 0);
+            &per_sm, rescore_kernel<PROFILE>, THREADS, 0);
         if (e != cudaSuccess) return (int)e;
         if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
         cached = sms * per_sm;
@@ -400,30 +450,33 @@ static int grid_blocks(int dev, int* out) {
     return 0;
 }
 
-// Launches the kernel on `stream`; returns the CUDA error code (0 = ok).
-// Every pointer is a device pointer; n_valid (one int32) may be null.
-// q_let and corr are (n_q, lq) row-major; submat is (alpha, alpha)
-// row-major with alpha <= 32; letters of q_let and t_cat must be < alpha.
-extern "C" int diag_rescore_launch(
-    const void* cqid, const void* cid, const void* cdiag, const void* cvalid,
-    const void* n_valid, int n_cand, const void* t_cat, long long t_bytes,
-    const void* t_off, const void* t_len, const void* q_let,
-    const void* corr, int n_q, int lq, const void* q_len,
-    const void* submat, int alpha, void* out, void* stream) {
-    if (n_cand <= 0) return 0;
-    if (alpha < 1 || alpha > MAX_ALPHA) return (int)cudaErrorInvalidValue;
+// Launches one form on `stream` with the candidate and target fields of
+// `a` set; returns the CUDA error code (0 = ok).
+template <bool PROFILE>
+static int launch(const Args& a, void* stream) {
+    if (a.n_cand <= 0) return 0;
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
     if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
     int blocks = 0;
-    int err = grid_blocks(dev, &blocks);
+    int err = grid_blocks<PROFILE>(dev, &blocks);
     if (err != 0) return err;
     // no more blocks than the slots could use
     const long long per_block = (long long)(THREADS / 32) * (32 / G);
-    const long long useful = (n_cand + per_block - 1) / per_block;
+    const long long useful = (a.n_cand + per_block - 1) / per_block;
     if (useful < blocks) blocks = (int)useful;
-    Args a;
+    rescore_kernel<PROFILE><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+static Args candidate_args(const void* cqid, const void* cid,
+                           const void* cdiag, const void* cvalid,
+                           const void* n_valid, int n_cand, const void* t_cat,
+                           long long t_bytes, const void* t_off,
+                           const void* t_len, int lq, const void* q_len,
+                           void* out) {
+    Args a = {};
     a.cqid = (const int*)cqid;
     a.cid = (const int*)cid;
     a.cdiag = (const int*)cdiag;
@@ -434,14 +487,44 @@ extern "C" int diag_rescore_launch(
     a.t_bytes = t_bytes;
     a.t_off = (const long long*)t_off;
     a.t_len = (const int*)t_len;
+    a.lq = lq;
+    a.q_len = (const int*)q_len;
+    a.out = (int*)out;
+    return a;
+}
+
+// Launches the letters form on `stream`; returns the CUDA error code
+// (0 = ok). Every pointer is a device pointer; n_valid (one int32) may be
+// null. q_let and corr are (n_q, lq) row-major; submat is (alpha, alpha)
+// row-major with alpha <= 32; letters of q_let and t_cat must be < alpha.
+extern "C" int diag_rescore_launch(
+    const void* cqid, const void* cid, const void* cdiag, const void* cvalid,
+    const void* n_valid, int n_cand, const void* t_cat, long long t_bytes,
+    const void* t_off, const void* t_len, const void* q_let,
+    const void* corr, int n_q, int lq, const void* q_len,
+    const void* submat, int alpha, void* out, void* stream) {
+    if (alpha < 1 || alpha > MAX_ALPHA) return (int)cudaErrorInvalidValue;
+    Args a = candidate_args(cqid, cid, cdiag, cvalid, n_valid, n_cand, t_cat,
+                            t_bytes, t_off, t_len, lq, q_len, out);
     a.q_let = (const uint8_t*)q_let;
     a.corr = (const uint8_t*)corr;
     a.q_bytes = (long long)n_q * lq;
-    a.lq = lq;
-    a.q_len = (const int*)q_len;
     a.submat = (const int*)submat;
     a.alpha = alpha;
-    a.out = (int*)out;
-    rescore_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    return launch<false>(a, stream);
+}
+
+// Launches the profile form on `stream`; returns the CUDA error code
+// (0 = ok). prof is (n_q, lq, 32) int8 row-major; letters of t_cat must be
+// < 32 (a letter's score is its column of the row).
+extern "C" int diag_rescore_profile_launch(
+    const void* cqid, const void* cid, const void* cdiag, const void* cvalid,
+    const void* n_valid, int n_cand, const void* t_cat, long long t_bytes,
+    const void* t_off, const void* t_len, const void* prof, int n_q, int lq,
+    const void* q_len, void* out, void* stream) {
+    (void)n_q;
+    Args a = candidate_args(cqid, cid, cdiag, cvalid, n_valid, n_cand, t_cat,
+                            t_bytes, t_off, t_len, lq, q_len, out);
+    a.prof = (const int8_t*)prof;
+    return launch<true>(a, stream);
 }

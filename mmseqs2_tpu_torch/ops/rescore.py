@@ -15,6 +15,13 @@ and 0 for an invalid candidate, a slot at or past the valid count, or an
 empty window. The score is exact (int32); the caller takes min(score, 255)
 where the reference caps.
 
+The profile form (B4', for profile queries; the JAX package's
+device_stages.make_rescore under _device_match) changes only the cell score:
+
+    s_l = prof[qid, qs + l, t_cat[t_off[id] + ts + l]]
+
+with prof (B, Lq, 32) int8, each query position's row padded to 32 bytes.
+
   diag_rescore        the wrapper: CUDA tensors go to the hand-written kernel
                       (csrc/rescore.cu, built at first use), CPU tensors to the
                       plain version; anything else raises.
@@ -22,6 +29,12 @@ where the reference caps.
   diag_rescore_plain  the same function in plain PyTorch (gather, cumsum,
                       cummin), on any device.
   window_cells        the cells of each slot's window (-1: no candidate).
+  diag_rescore_profile, diag_rescore_profile_plain
+                      the profile form's wrapper (its own `launches`) and
+                      plain version, on the same kernel template.
+  profile_rows        packs a query's integer (L, A) rescore profile into the
+                      int8 (L, 32) rows the profile form reads; raises on a
+                      value outside int8 (never clamps).
 
 Tensors: cqid, cid, cdiag (C,) int32 and cvalid (C,) bool; t_cat (R,) int8
 target letters, t_off (T,) int64 and t_len (T,) int32; q_pad (B, Lq) uint8
@@ -47,9 +60,11 @@ set by bytes, not operations, and a window's running sum can pass int16.
 
 import ctypes
 
+import numpy as np
 import torch
 
 MAX_ALPHA = 32
+PROFILE_WIDTH = 32      # bytes of a profile row: one 32-byte sector
 PLAIN_ROWS = 2048       # candidates per gather block of the plain version
 
 _SPEC = (("cqid", torch.int32, 1), ("cid", torch.int32, 1),
@@ -60,9 +75,13 @@ _SPEC = (("cqid", torch.int32, 1), ("cid", torch.int32, 1),
          ("q_len", torch.int32, 1))
 
 
-def _check(args, n_valid=None):
+_PROFILE_SPEC = _SPEC[:7] + (("prof", torch.int8, 3),
+                             ("q_len", torch.int32, 1))
+
+
+def _check_tensors(spec, args):
     dev = args[0].device
-    for (name, dtype, dim), t in zip(_SPEC, args):
+    for (name, dtype, dim), t in zip(spec, args):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, cqid on {dev}")
         if t.dtype != dtype:
@@ -72,20 +91,38 @@ def _check(args, n_valid=None):
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    cqid, cid, cdiag, cvalid, _, t_off, t_len, q_pad, corr, submat, q_len = \
-        args
+    cqid, cid, cdiag, cvalid, _, t_off, t_len = args[:7]
     n = cqid.shape[0]
     for name, t in (("cid", cid), ("cdiag", cdiag), ("cvalid", cvalid)):
         if t.shape[0] != n:
             raise ValueError(f"{name} must be ({n},), got {tuple(t.shape)}")
     if t_off.shape != t_len.shape:
         raise ValueError("t_off and t_len must have one entry per target")
+
+
+def _check(args, n_valid=None):
+    _check_tensors(_SPEC, args)
+    q_pad, corr, submat, q_len = args[7:]
     if corr.shape != q_pad.shape or q_len.shape[0] != q_pad.shape[0]:
         raise ValueError("q_pad, corr must be (B, Lq) and q_len (B,)")
     if submat.shape[0] != submat.shape[1] or not \
             1 <= submat.shape[0] <= MAX_ALPHA:
         raise ValueError(f"submat must be (A, A) with A <= {MAX_ALPHA}, got "
                          f"{tuple(submat.shape)}")
+    _check_n_valid(n_valid, args[0].device)
+
+
+def _check_profile(args, n_valid=None):
+    _check_tensors(_PROFILE_SPEC, args)
+    prof, q_len = args[7:]
+    if prof.shape[2] != PROFILE_WIDTH or q_len.shape[0] != prof.shape[0]:
+        raise ValueError(f"prof must be (B, Lq, {PROFILE_WIDTH}) and q_len "
+                         f"(B,), got {tuple(prof.shape)} and "
+                         f"{tuple(q_len.shape)}")
+    _check_n_valid(n_valid, args[0].device)
+
+
+def _check_n_valid(n_valid, dev):
     if n_valid is None:
         return
     if not isinstance(n_valid, torch.Tensor):
@@ -122,10 +159,12 @@ def window_cells(cqid, cid, cdiag, cvalid, t_len, q_len, n_valid=None):
     return torch.where(cvalid, _window(qid, tid, cdiag, t_len, q_len)[2], -1)
 
 
-def diag_rescore_plain(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad,
-                       corr, submat, q_len, n_valid=None):
-    """Plain version of diag_rescore: valid candidates are gathered in
-    blocks of PLAIN_ROWS, each as wide as its longest window."""
+def _plain(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_len, n_valid,
+           lq, cell):
+    """The max-subarray of every valid slot's window, in blocks of
+    PLAIN_ROWS candidates, each as wide as its longest window.
+    cell(tc, qrow) gives the cells' scores from their target letters and
+    their flat query rows (qid * lq + query position)."""
     dev = cqid.device
     out = torch.zeros(cqid.shape[0], dtype=torch.int32, device=dev)
     if n_valid is not None:
@@ -137,12 +176,6 @@ def diag_rescore_plain(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad,
     qid = cqid[sel].long()
     tid = cid[sel].long()
     qs, ts, n = _window(qid, tid, cdiag[sel], t_len, q_len)
-    base = t_off[tid] + ts
-    lq = q_pad.shape[1]
-    alpha = submat.shape[1]
-    sub_flat = submat.reshape(-1).long()
-    q_flat = q_pad.reshape(-1)
-    corr_flat = corr.reshape(-1)
     res = torch.zeros(sel.numel(), dtype=torch.int64, device=dev)
     for lo in range(0, sel.numel(), PLAIN_ROWS):
         hi = min(lo + PLAIN_ROWS, sel.numel())
@@ -152,11 +185,11 @@ def diag_rescore_plain(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad,
             continue
         l = torch.arange(ln, device=dev)[None, :]
         active = l < n_k[:, None]
-        tc = t_cat[torch.where(active, base[lo:hi, None] + l, 0)].long()
+        base = t_off[tid[lo:hi]] + ts[lo:hi]
+        tc = t_cat[torch.where(active, base[:, None] + l, 0)].long()
         qrow = qid[lo:hi, None] * lq + torch.where(
             active, qs[lo:hi, None] + l, 0)
-        s = sub_flat[q_flat[qrow].long() * alpha + tc] + corr_flat[qrow]
-        s = torch.where(active, s, 0)
+        s = torch.where(active, cell(tc, qrow), 0)
         cums = torch.cumsum(s, 1)
         prev_min = torch.cat(
             [torch.zeros_like(cums[:, :1]),
@@ -165,6 +198,21 @@ def diag_rescore_plain(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad,
         res[lo:hi] = run.max(1).values
     out[sel] = res.clamp(min=0).to(torch.int32)
     return out
+
+
+def diag_rescore_plain(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad,
+                       corr, submat, q_len, n_valid=None):
+    """Plain version of diag_rescore: valid candidates are gathered in
+    blocks of PLAIN_ROWS, each as wide as its longest window."""
+    alpha = submat.shape[1]
+    sub_flat = submat.reshape(-1).long()
+    q_flat = q_pad.reshape(-1)
+    corr_flat = corr.reshape(-1)
+    return _plain(
+        cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_len, n_valid,
+        q_pad.shape[1],
+        lambda tc, qrow: sub_flat[q_flat[qrow].long() * alpha + tc]
+        + corr_flat[qrow])
 
 
 def _launch_kernel(args, n_valid):
@@ -211,6 +259,70 @@ def diag_rescore(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad, corr,
 
 diag_rescore.launches = 0
 
+
+def profile_rows(rows):
+    """int8 (L, PROFILE_WIDTH) rows of a query's integer (L, A) rescore
+    profile (A <= PROFILE_WIDTH), zero past column A. Raises on a value
+    that does not fit int8: the profile form never clamps."""
+    rows = np.asarray(rows)
+    if rows.ndim != 2 or rows.shape[1] > PROFILE_WIDTH:
+        raise ValueError(f"a rescore profile must be (L, A) with A <= "
+                         f"{PROFILE_WIDTH}, got {rows.shape}")
+    if rows.size and (rows.min() < -128 or rows.max() > 127):
+        raise ValueError(f"rescore profile values {int(rows.min())}.."
+                         f"{int(rows.max())} do not fit int8")
+    out = np.zeros((rows.shape[0], PROFILE_WIDTH), np.int8)
+    out[:, :rows.shape[1]] = rows
+    return out
+
+
+def diag_rescore_profile_plain(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len,
+                               prof, q_len, n_valid=None):
+    """Plain version of diag_rescore_profile (the JAX package's
+    device_stages.make_rescore): blocks of PLAIN_ROWS candidates."""
+    prof_flat = prof.reshape(-1)
+    return _plain(
+        cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_len, n_valid,
+        prof.shape[1],
+        lambda tc, qrow: prof_flat[qrow * PROFILE_WIDTH + tc].long())
+
+
+def diag_rescore_profile(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, prof,
+                         q_len, n_valid=None):
+    """The profile form: exact best ungapped diagonal score per candidate
+    with a cell's score read from its query's profile row, (C,) int32 on
+    the inputs' device. prof is (B, Lq, 32) int8 (profile_rows); target
+    letters must be < 32."""
+    args = (cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, prof, q_len)
+    _check_profile(args, n_valid)
+    dev = cqid.device
+    if dev.type == "cpu":
+        return diag_rescore_profile_plain(*args, n_valid)
+    if dev.type != "cuda":
+        raise ValueError(f"diag_rescore_profile: no kernel for device {dev}")
+    n = cqid.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.diag_rescore_profile_launch(
+            cqid.data_ptr(), cid.data_ptr(), cdiag.data_ptr(),
+            cvalid.data_ptr(), None if n_valid is None else
+            n_valid.data_ptr(), n, t_cat.data_ptr(), t_cat.numel(),
+            t_off.data_ptr(), t_len.data_ptr(), prof.data_ptr(),
+            prof.shape[0], prof.shape[1], q_len.data_ptr(), out.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"diag_rescore_profile kernel launch failed: CUDA "
+                           f"error {err}")
+    diag_rescore_profile.launches += 1
+    return out
+
+
+diag_rescore_profile.launches = 0
+
 _LIB = None
 
 
@@ -224,5 +336,8 @@ def _lib():
         lib.diag_rescore_launch.argtypes = [p, p, p, p, p, i, p, ll, p, p, p,
                                             p, i, i, p, p, i, p, p]
         lib.diag_rescore_launch.restype = ctypes.c_int
+        lib.diag_rescore_profile_launch.argtypes = [
+            p, p, p, p, p, i, p, ll, p, p, p, i, i, p, p, p]
+        lib.diag_rescore_profile_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB

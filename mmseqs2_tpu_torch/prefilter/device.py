@@ -1,7 +1,7 @@
 """Device-resident batched k-mer prefilter (the QueryMatcher hot path).
 
-Port of mmseqs2_tpu/prefilter/device.py to PyTorch, for plain protein
-sequence queries against one resident target index.
+Port of mmseqs2_tpu/prefilter/device.py to PyTorch, for protein sequence
+and profile queries against one resident target index.
 
 Reference semantics: src/prefiltering/QueryMatcher.cpp (matchQuery :103-241,
 match :243-376, getResult :401-458), CacheFriendlyOperations.cpp
@@ -29,9 +29,15 @@ operations over buffers of the flush's own size:
   6. adaptive score threshold - per-query 256-bin histogram
   7. top-K selection + final (score desc, id asc) ordering
 
-The host prepares per-window similar-k-mer triples (KmerGenerator), the CSR
-lookups and the posting expansion; everything after that runs on the
-device. A flush is enqueued without reading anything back
+The host prepares per-window similar-k-mer triples (KmerGenerator, or a
+profile query's ProfileKmerGenerator), the CSR lookups and the posting
+expansion; everything after that runs on the device. A profile query's
+flush uploads its queries' rescore profiles, (B, Lq, 32) int8 (pssm/4 on
+the 20 amino-acid columns, X at 0, no bias correction), and rescores with
+the profile form of the kernel (diag_rescore_profile), as the JAX
+package's _device_match does; its device-side posting expansion
+(stage_candidates) is semantically identical to this host expansion and
+stage_candidates_pre. A flush is enqueued without reading anything back
 (match_batch_async); match_batch_wait is the one place that synchronises.
 The rescoreHits truncation path (score threshold saturated at 255,
 QueryMatcher.cpp:184-214) is detected on the device and those queries are
@@ -48,7 +54,8 @@ import numpy as np
 import torch
 
 from ..ops.encode import calc_local_aa_bias
-from ..ops.rescore import diag_rescore, window_cells
+from ..ops.rescore import (diag_rescore, diag_rescore_profile, profile_rows,
+                           window_cells)
 from .device_stages import (stage_candidates_pre, stage_finalize,
                             stage_hist, stage_keepmax, stage_select,
                             threshold_from_hist)
@@ -64,11 +71,14 @@ WINDOW_BINS = 513
 
 def device_match_pre(qtid, diag, t_cat, t_off, t_len, q_pad, corr, submat,
                      q_len, identity, *, n_q, max_hits, min_diag_thr, out_sz,
-                     tb, record=None):
+                     tb, record=None, prof=None):
     """Match a host-expanded flush on the device of its tensors.
 
     qtid (H,) i32 `qid << tb | id` and diag (H,) i16 (the u16 diagonal's
-    bits) per expansion, in expansion order. Returns (big, small): big
+    bits) per expansion, in expansion order. Sequence queries are rescored
+    from their letters (q_pad, corr, submat); profile queries from their
+    rows, prof (B, Lq, 32) int8 (q_pad, corr and submat None). Returns
+    (big, small): big
     (5, out_sz) i32 rows qid, id, diagonal, score, valid in final order;
     small = [n_cand, n_keep, total, truncated per query].
 
@@ -77,8 +87,12 @@ def device_match_pre(qtid, diag, t_cat, t_off, t_len, q_pad, corr, submat,
     c_cap = qtid.shape[0]
     cqid, cid, cdiag, cvalid, n_cand, total = stage_candidates_pre(
         qtid, diag, c_cap=c_cap, tb=tb)
-    cexact = diag_rescore(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len,
-                          q_pad, corr, submat, q_len, n_cand)
+    if prof is None:
+        cexact = diag_rescore(cqid, cid, cdiag, cvalid, t_cat, t_off, t_len,
+                              q_pad, corr, submat, q_len, n_cand)
+    else:
+        cexact = diag_rescore_profile(cqid, cid, cdiag, cvalid, t_cat, t_off,
+                                      t_len, prof, q_len, n_cand)
     if record is not None:
         n = window_cells(cqid, cid, cdiag, cvalid, t_len, q_len, n_cand)
         hist = torch.zeros(WINDOW_BINS, dtype=torch.int64, device=n.device)
@@ -133,6 +147,8 @@ class DevicePrefilter:
         self.host_fallback = host_fallback   # QueryMatcher oracle
         self.x_index = seed.alphabet_size - 1
         self.host_oracle_queries = 0
+        # bytes of profile-query rescore profiles uploaded with the flushes
+        self.profile_bytes = 0
         # when set: one dict per flush's rescore (slots, valid candidates,
         # window-length histogram), filled by match_batch_wait
         self.record_rescore = False
@@ -165,7 +181,7 @@ class DevicePrefilter:
         ).to(dev)
 
     # -- host-side stage 0: windows -> similar k-mer triples ---------------
-    def query_triples(self, q_num, comp_bias):
+    def query_triples(self, q_num, comp_bias, generator=None):
         """(kmer codes, qpos) for one query, reference enumeration order.
 
         Whole-query vectorized similar-k-mer generation (the reference's
@@ -190,36 +206,42 @@ class DevicePrefilter:
         thr = np.maximum(self.kmer_thr - bias, 0)
         windows = q_num[pos[:, None]
                         + self.index.offsets_pat[None, :]].astype(np.int64)
-        codes, win_of = self.generator.generate_all(windows, thr, pos)
+        gen = generator if generator is not None else self.generator
+        codes, win_of = gen.generate_all(windows, thr, pos)
         return codes, pos[win_of].astype(np.int32)
 
     def prepare_query(self, q_num, rescore_profile=None, generator=None):
-        """Host stage for one plain sequence query.
+        """Host stage for one query.
 
-        Returns (starts, counts, qpos, None, corr, ids, diag): the CSR
-        lookups of the similar k-mers, the i8 bias correction, and the
+        Returns (starts, counts, qpos, prof, corr, ids, diag): the CSR
+        lookups of the similar k-mers, the rescore's inputs, and the
         host-side posting expansion: target ids (i32) and u16 diagonals per
-        expanded match, in expansion order. (The fourth slot held the
-        per-query profile of the JAX version's device-expansion path.)"""
-        if rescore_profile is not None or generator is not None:
-            raise NotImplementedError(
-                f"the profile-query prefilter {NOT_PORTED}")
-        if self.aa_bias_corr:
-            comp_bias = calc_local_aa_bias(
-                q_num, self.seed.sub_matrix, self.seed.pback,
-                self.bias_scale)
-        else:
+        expanded match, in expansion order. A sequence query carries its i8
+        bias correction (prof None); a profile query (its (L, 21) rescore
+        profile and its ProfileKmerGenerator given) carries its int8
+        (L, 32) profile rows and no correction: profiles take no
+        composition bias (QueryMatcher.cpp:109-117)."""
+        if rescore_profile is not None:
             comp_bias = np.zeros(len(q_num), np.float32)
-        corr = np.trunc(np.where(comp_bias < 0.0, comp_bias / 4 - 0.5,
-                                 comp_bias / 4 + 0.5)).astype(np.int32)
-        codes, qpos = self.query_triples(q_num, comp_bias)
+            prof, corr = profile_rows(rescore_profile), None
+        else:
+            if self.aa_bias_corr:
+                comp_bias = calc_local_aa_bias(
+                    q_num, self.seed.sub_matrix, self.seed.pback,
+                    self.bias_scale)
+            else:
+                comp_bias = np.zeros(len(q_num), np.float32)
+            corr = np.trunc(np.where(comp_bias < 0.0, comp_bias / 4 - 0.5,
+                                     comp_bias / 4 + 0.5)).astype(np.int8)
+            prof = None
+        codes, qpos = self.query_triples(q_num, comp_bias, generator)
         s, c = self.index.lists(codes)
         # drop empty posting lists: most similar k-mers miss the index
         # entirely (sparse k-mer space)
         nz = c > 0
         s, c, qpos = s[nz].astype(np.int32), c[nz].astype(np.int32), qpos[nz]
         ids, diag = self._expand_host(s, c, qpos)
-        return (s, c, qpos, None, corr.astype(np.int8), ids, diag)
+        return (s, c, qpos, prof, corr, ids, diag)
 
     def _expand_host(self, starts, counts, qpos):
         """Posting expansion for one query: (ids i32, diag u16) per
@@ -257,12 +279,12 @@ class DevicePrefilter:
         work are enqueued, nothing is read back. Returns a pending handle
         for match_batch_wait, so the caller can dispatch flush N+1 before
         fetching flush N."""
-        if rescore_profiles is not None or generators is not None:
-            raise NotImplementedError(
-                f"the profile-query prefilter {NOT_PORTED}")
         B = len(queries)
         if prepared is None:
-            prepared = [self.prepare_query(q) for q in queries]
+            prepared = [self.prepare_query(
+                q, rescore_profiles[b] if rescore_profiles else None,
+                generators[b] if generators else None)
+                for b, q in enumerate(queries)]
         total = sum(len(p[5]) for p in prepared)
         results = [[] for _ in range(B)]
         for b in range(B):
@@ -276,7 +298,8 @@ class DevicePrefilter:
                 f"the device-side posting expansion for target sets past "
                 f"the packed sort key {NOT_PORTED}")
         return self._match_pre_async(queries, identity_ids, prepared,
-                                     results, total)
+                                     results, total, rescore_profiles,
+                                     generators)
 
     def _tb(self):
         """Bit width of the target-id field in the shift-packed sort key
@@ -284,13 +307,17 @@ class DevicePrefilter:
         b = max(int(self.n_targets - 1).bit_length(), 1)
         return (b + 1) & ~1
 
-    def _host_match(self, query, identity_id):
+    def _host_match(self, query, identity_id, rescore_profile=None,
+                    generator=None):
+        """The host oracle's match of one query, with a profile query's
+        generator and rescore profile."""
         self.host_oracle_queries += 1
-        return self.host_fallback.match(query, identity_id,
-                                        diagonal_scoring=True)
+        return self.host_fallback.match(
+            query, identity_id, diagonal_scoring=True,
+            rescore_profile=rescore_profile, generator=generator)
 
     def _match_pre_async(self, queries, identity_ids, prepared, results,
-                         total):
+                         total, rescore_profiles=None, generators=None):
         """Dispatch a host-expanded flush (see device_match_pre)."""
         B = len(queries)
         if total > self.H_CAP_MAX:
@@ -299,10 +326,13 @@ class DevicePrefilter:
                 if self.host_fallback is None:
                     raise MemoryError(
                         f"query hit volume {total} exceeds device capacity")
-                return {"done": [self._host_match(queries[0],
-                                                  identity_ids[0])]}
+                return {"done": [self._host_match(
+                    queries[0], identity_ids[0],
+                    rescore_profiles[0] if rescore_profiles else None,
+                    generators[0] if generators else None)]}
             return {"done": self._split_batch(queries, identity_ids,
-                                              prepared)}
+                                              prepared, rescore_profiles,
+                                              generators)}
         dev = self.device
         pin = dev.type == "cuda"
         qlens = [len(q) for q in queries]
@@ -313,38 +343,56 @@ class DevicePrefilter:
             return torch.empty(shape, dtype=dtype, pin_memory=pin)
 
         h_qtid, h_diag = host(total, torch.int32), host(total, torch.int16)
-        h_q = host((B, lq_max), torch.uint8)
-        h_corr = host((B, lq_max), torch.int8)
         h_meta = host((2, B), torch.int32)
         qtid, diag = h_qtid.numpy(), h_diag.numpy().view(np.uint16)
-        q_pad, corr = h_q.numpy(), h_corr.numpy()
-        q_pad[:] = self.x_index
-        corr[:] = 0
         off = 0
         for b, p in enumerate(prepared):
             n = len(p[5])
             qtid[off:off + n] = p[5] + np.int32(b << tb)
             diag[off:off + n] = p[6]
             off += n
-            q_pad[b, :qlens[b]] = queries[b]
-            corr[b, :qlens[b]] = p[4]
         h_meta.numpy()[0] = qlens
         h_meta.numpy()[1] = identity_ids
-        d_qtid, d_diag, d_q, d_corr, d_meta = (
+        profile = prepared[0][3] is not None
+        if profile:
+            # the queries' rescore profiles, one 32-byte row a position
+            h_rows = host((B, lq_max, prepared[0][3].shape[1]), torch.int8)
+            rows = h_rows.numpy()
+            rows[:] = 0
+            for b, p in enumerate(prepared):
+                rows[b, :qlens[b]] = p[3]
+            staged = (h_rows,)
+            self.profile_bytes += h_rows.numel()
+        else:
+            h_q = host((B, lq_max), torch.uint8)
+            h_corr = host((B, lq_max), torch.int8)
+            q_pad, corr = h_q.numpy(), h_corr.numpy()
+            q_pad[:] = self.x_index
+            corr[:] = 0
+            for b, p in enumerate(prepared):
+                q_pad[b, :qlens[b]] = queries[b]
+                corr[b, :qlens[b]] = p[4]
+            staged = (h_q, h_corr)
+        d_qtid, d_diag, d_meta, *d_staged = (
             t.to(dev, non_blocking=True)
-            for t in (h_qtid, h_diag, h_q, h_corr, h_meta))
+            for t in (h_qtid, h_diag, h_meta) + staged)
+        rescore_in = (dict(q_pad=None, corr=None, submat=None,
+                           prof=d_staged[0]) if profile else
+                      dict(q_pad=d_staged[0], corr=d_staged[1],
+                           submat=self.d_submat))
         record = {} if self.record_rescore else None
         big, small = device_match_pre(
             d_qtid, d_diag, self.d_t_cat, self.d_t_off, self.d_t_lens,
-            d_q, d_corr, self.d_submat, d_meta[0], d_meta[1],
+            q_len=d_meta[0], identity=d_meta[1],
             n_q=B, max_hits=self.max_hits, min_diag_thr=self.min_diag_thr,
             out_sz=max(min(total, B * self.max_hits), 1), tb=tb,
-            record=record)
+            record=record, **rescore_in)
         # the pinned buffers stay referenced until the flush is fetched
         return {"queries": queries, "identity_ids": identity_ids,
                 "results": results, "big": big, "small": small,
-                "host": (h_qtid, h_diag, h_q, h_corr, h_meta),
-                "record": record}
+                "host": (h_qtid, h_diag, h_meta) + staged,
+                "record": record, "rescore_profiles": rescore_profiles,
+                "generators": generators}
 
     def match_batch_wait(self, pend):
         """Fetch + post-process a match_batch_async dispatch."""
@@ -374,13 +422,20 @@ class DevicePrefilter:
                 results[b].append((int(oids[i]), int(ofss[i]),
                                    int(diags[i])))
         if truncated.any() and self.host_fallback is not None:
+            rps, gens = pend["rescore_profiles"], pend["generators"]
             for b in np.nonzero(truncated)[0]:
-                results[b] = self._host_match(queries[b], identity_ids[b])
+                results[b] = self._host_match(
+                    queries[b], identity_ids[b], rps[b] if rps else None,
+                    gens[b] if gens else None)
         return results
 
-    def _split_batch(self, queries, identity_ids, prepared):
+    def _split_batch(self, queries, identity_ids, prepared,
+                     rescore_profiles=None, generators=None):
         mid = len(queries) // 2
-        return (self.match_batch(queries[:mid], identity_ids[:mid],
-                                 prepared=prepared[:mid])
-                + self.match_batch(queries[mid:], identity_ids[mid:],
-                                   prepared=prepared[mid:]))
+
+        def sub(sl):
+            return self.match_batch(
+                queries[sl], identity_ids[sl],
+                rescore_profiles[sl] if rescore_profiles else None,
+                generators[sl] if generators else None, prepared[sl])
+        return sub(slice(0, mid)) + sub(slice(mid, len(queries)))

@@ -79,13 +79,15 @@ class QueryMatcher:
 
     # -- stage 1: k-mer match + double-diagonal detection ---------------------
 
-    def gather_hits(self, q_num: np.ndarray, comp_bias: np.ndarray):
+    def gather_hits(self, q_num: np.ndarray, comp_bias: np.ndarray,
+                    generator=None):
         """Collect (local target id, diagonal u16) double-match candidates in
         reference scan order: window by window (QueryMatcher.cpp:255-284),
         each window's similar k-mers in the generator's order, each k-mer's
         postings in index order. The windows are enumerated in one batch
         (KmerGenerator.generate_all, the concatenation of the per-window
-        enumerations) and their postings expanded at once."""
+        enumerations) and their postings expanded at once. `generator`
+        (a profile query's) stands in for the matcher's own."""
         idx_all, pos_all, has_x = extract_kmers(
             q_num, self.index.offsets_pat, self.index.span,
             self.index.alpha, self.x_index)
@@ -98,7 +100,8 @@ class QueryMatcher:
             bias = np.trunc(np.where(bias_f < 0.0, bias_f - 0.5,
                                      bias_f + 0.5)).astype(np.int64)
             thr = np.maximum(self.kmer_thr - bias, 0)
-            codes, win_of = self.generator.generate_all(
+            gen = generator if generator is not None else self.generator
+            codes, win_of = gen.generate_all(
                 q_num[cols].astype(np.int64), thr, pos)
         else:
             codes = win_of = np.zeros(0, np.int64)
@@ -224,7 +227,7 @@ class QueryMatcher:
     def match(self, q_num: np.ndarray, identity_id: int = -1,
               diagonal_scoring: bool = True,
               rescore_profile: np.ndarray = None,
-              allowed_mask: np.ndarray = None):
+              allowed_mask: np.ndarray = None, generator=None):
         """Returns list of hit tuples (local target id, prefScore,
         diagonal i32) in final output order.
 
@@ -232,7 +235,8 @@ class QueryMatcher:
         alignment-scale column scores (pssm/4, X=0). Composition bias is
         zeroed for profiles (QueryMatcher.cpp:109-117) and the diagonal
         rescore reads the profile directly (UngappedAlignment.cpp profile
-        branch of createProfile)."""
+        branch of createProfile); `generator` is such a query's k-mer
+        generator (ProfileKmerGenerator), in place of the matcher's own."""
         if (rescore_profile is None and self.aa_bias_corr
                 and not self.is_nucleotide):
             comp_bias = calc_local_aa_bias(
@@ -240,7 +244,7 @@ class QueryMatcher:
         else:
             comp_bias = np.zeros(len(q_num), dtype=np.float32)
 
-        ids, diags = self.gather_hits(q_num, comp_bias)
+        ids, diags = self.gather_hits(q_num, comp_bias, generator)
 
         if not diagonal_scoring:
             # KMER_SCORE path: double-match counts are the prefilter score

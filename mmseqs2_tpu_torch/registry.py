@@ -67,6 +67,12 @@ COMMANDS: List[Command] = [
     Command("prefilter", "prefilter_kmer", "prefilter_kmer", CAT_CORE,
             "K-mer inverted-index double-diagonal prefilter",
             "prefilter <queryDB> <targetDB> <prefDB>", 3, 3),
+    Command("result2profile", "result2profile", "result2profile", CAT_CORE,
+            "Compute a PSSM profile DB from alignment results",
+            "result2profile <queryDB> <targetDB> <alnDB> <profileDB>", 4, 4),
+    Command("filterresult", "result2profile", "filterresult", CAT_UTIL,
+            "Pass an alignment result DB through the MSA filter",
+            "filterresult <queryDB> <targetDB> <resultDB> <outDB>", 4, 4),
     Command("ungappedprefilter", "prefilter_cmd", "ungappedprefilter",
             CAT_CORE, "Exhaustive ungapped diagonal prefilter",
             "ungappedprefilter <queryDB> <targetDB> <prefDB>", 3, 3),

@@ -4,6 +4,7 @@ made from a numpy seed, must give equal AlnResult records field by field
 (integers, and floats computed by the same copied Python)."""
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -123,5 +124,19 @@ def test_query_setup_and_identity_match_jax():
         for mode in (0, 2):
             assert dataclasses.asdict(ta.score_identical(tc, q, mode)) == \
                 dataclasses.asdict(ja.score_identical(jc, q, mode))
-    with pytest.raises(NotImplementedError):
-        ta.init_profile_query(None)
+    # profile queries (a golden PSSM profile DB entry): the same columns,
+    # bias and identity shortcut as the JAX Aligner's
+    from mmseqs2_tpu.profile.io import parse_profile as j_parse
+    from mmseqs2_tpu_torch.db.reader import DBReader
+    from mmseqs2_tpu_torch.profile.io import parse_profile as t_parse
+    golden = pathlib.Path(__file__).parent / "golden" / "toy"
+    with DBReader(str(golden / "it_profile_0")) as r:
+        data = r.get_data(r.get_id(5))
+    tc, jc = ta.init_profile_query(t_parse(data)), ja.init_profile_query(
+        j_parse(data))
+    np.testing.assert_array_equal(tc.profile, jc.profile)
+    np.testing.assert_array_equal(tc.q_num, jc.q_num)
+    assert tc.bias == jc.bias
+    for mode in (0, 2):
+        assert dataclasses.asdict(ta.score_identical(tc, tc.q_num, mode)) \
+            == dataclasses.asdict(ja.score_identical(jc, jc.q_num, mode))

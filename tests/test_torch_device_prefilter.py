@@ -340,9 +340,9 @@ def test_batch_over_the_memory_limit_is_split(world, monkeypatch):
     calls = []
     real = DevicePrefilter._split_batch
 
-    def spy(self, qs, ids, prep):
+    def spy(self, qs, ids, prep, *profiles):
         calls.append(len(qs))
-        return real(self, qs, ids, prep)
+        return real(self, qs, ids, prep, *profiles)
 
     monkeypatch.setattr(DevicePrefilter, "_split_batch", spy)
     # room for about two queries per device call
@@ -358,12 +358,39 @@ def test_batch_over_the_memory_limit_is_split(world, monkeypatch):
 
 
 def test_unported_query_kinds_raise(world):
+    """Profile queries, which this test once showed were not ported: the
+    port's device route (host expansion, the profile form of the rescore)
+    against the host oracle and the JAX DevicePrefilter's profile route
+    (_device_match), hit for hit, on random PSSMs that favour the targets'
+    motifs."""
+    from mmseqs2_tpu.prefilter.kmer_generator import (
+        ProfileKmerGenerator as JaxProfileKmerGenerator)
+    from mmseqs2_tpu_torch.commands.prefilter_kmer import profile_query
+    from mmseqs2_tpu_torch.profile.io import ProfileEntry
     seqs, motifs, pair = world
-    q = make_query(motifs)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pair.dev.match_batch([q], [-1], rescore_profiles=[np.zeros((70, 21))])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pair.dev.match_batch([q], [-1], generators=[object()])
+    prng = np.random.default_rng(17)
+    alpha = pair.seed.alphabet_size - 1
+    profiles, queries = [], []
+    for _ in range(4):
+        q = make_query(motifs)
+        scores = prng.integers(-40, 12, size=(len(q), 20))
+        scores[np.arange(len(q)), q] = prng.integers(30, 80, size=len(q))
+        p = ProfileEntry()
+        p.scores, p.length = scores.astype(np.int8), len(q)
+        p.query_num = q.astype(np.uint8)
+        profiles.append(p)
+        queries.append(q)
+    gens, rps = zip(*(profile_query(p, 6, alpha, pair.table.offsets_pat)
+                      for p in profiles))
+    jgens = [JaxProfileKmerGenerator(6, alpha, g.scores, g.idx, g.offsets)
+             for g in gens]
+    got = pair.dev.match_batch(queries, [-1] * 4, list(rps), list(gens))
+    theirs = pair.jax.match_batch(queries, [-1] * 4, list(rps), jgens)
+    for b, q in enumerate(queries):
+        want = pair.host.match(q, -1, diagonal_scoring=True,
+                               rescore_profile=rps[b], generator=gens[b])
+        assert got[b] == want and got[b] == theirs[b], b
+    assert sum(len(g) for g in got) > 4
 
 
 def test_index_saved_by_the_jax_package_loads_in_the_port(world, tmp_path):

@@ -5,8 +5,12 @@ numpy, with and without the valid count; and a numpy model of the CUDA
 kernel's decomposition (aligned word loads joined by a funnel shift, runs of
 K cells per lane, the cells past a window scored 0, groups of G lanes
 combined by an exclusive sum-scan and a min-scan, carries between passes)
-against the same loop, at the kernel's G = 8 and K = 16. Every output is an
-integer: tolerance 0.
+against the same loop, at the kernel's G = 8 and K = 16. The profile form
+(diag_rescore_profile: a cell's score read from its query's int8 profile
+row) against a Kadane loop over the profile, the JAX package's
+device_stages.make_rescore, and the letters form on the profile that a
+query's letters and corrections make. Every output is an integer:
+tolerance 0.
 
 The card tests (the kernel against its plain version, and a whole flush of
 the prefilter's device stages against the same flush on the CPU) need a
@@ -228,6 +232,144 @@ def test_window_cells():
         d = int(np.int16(np.uint16(cdiag[c])))
         n = min(t_len[cid[c]] - max(-d, 0), q_len[cqid[c]] - max(d, 0))
         assert got[c] == max(n, 0)
+
+
+# -- the profile form ----------------------------------------------------------
+
+def make_profile_case(seed, **kw):
+    """make_case's candidates and target store with a random int8 profile
+    per query in the PSSM/4 range ([-32, 31] on the 20 amino-acid columns,
+    the X column 0, zero past column 21 and past the query's length); query
+    0's rows favour its letters, which make_case plants in target 1, so the
+    planted windows score past 255. In diag_rescore_profile's order."""
+    case = make_case(seed, **kw)
+    cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad, _, _, q_len = case
+    rng = np.random.default_rng(seed + 100)
+    n_q, lq = q_pad.shape
+    rows = rng.integers(-32, 32, size=(n_q, lq, ALPHA))
+    rows[:, :, ALPHA - 1] = 0
+    rows[0, np.arange(lq), q_pad[0]] = 25
+    prof = np.zeros((n_q, lq, tr.PROFILE_WIDTH), np.int8)
+    for b in range(n_q):
+        prof[b, :q_len[b]] = tr.profile_rows(rows[b, :q_len[b]])
+    return (cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, prof, q_len)
+
+
+def kadane_profile(case):
+    cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, prof, q_len = case
+    out = np.zeros(len(cqid), np.int64)
+    for c in np.nonzero(cvalid)[0]:
+        d = int(np.int16(np.uint16(cdiag[c])))
+        qs, ts = max(d, 0), max(-d, 0)
+        b, i = cqid[c], cid[c]
+        run = 0
+        for l in range(max(min(t_len[i] - ts, q_len[b] - qs), 0)):
+            run = max(run, 0) + int(prof[b, qs + l,
+                                         t_cat[t_off[i] + ts + l]])
+            out[c] = max(out[c], run)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_profile_plain_matches_kadane_loop(name):
+    case = make_profile_case(**CASES[name])
+    got = tr.diag_rescore_profile_plain(*as_torch(case)).numpy()
+    assert np.array_equal(got, kadane_profile(case))
+    assert (got[~case[3]] == 0).all()
+    if CASES[name].get("planted", True):
+        assert got[0] > 255 and got[0] == got[1]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_profile_plain_matches_jax_make_rescore(name):
+    """The JAX package's rescorer of profile queries (make_rescore under
+    _chunked_rescore, XLA on the CPU) on the same (B, Lq, 21) profile."""
+    import jax.numpy as jnp
+    from mmseqs2_tpu.prefilter import device_stages as jds
+    case = make_profile_case(**CASES[name])
+    cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, prof, q_len = case
+    lq = prof.shape[1]
+    ln = jds.bucket(max(lq, int(t_len.max())), 64)
+    rescore = jds.make_rescore(
+        jnp.asarray(t_cat), jnp.asarray(t_off.astype(np.int32)),
+        jnp.asarray(t_len), jnp.asarray(prof[:, :, :ALPHA].astype(np.int32)),
+        jnp.asarray(q_len), lq_max=lq, ln_max=ln, chunk=128)
+    args = [jnp.asarray(a) for a in (cqid, cid, cdiag, cvalid)]
+    exact = np.asarray(rescore(*args, cap=False))
+    capped = np.asarray(rescore(*args, cap=True))
+    got = tr.diag_rescore_profile_plain(*as_torch(case)).numpy()
+    assert np.array_equal(got, exact)
+    assert np.array_equal(np.minimum(got, 255), capped)
+
+
+def test_profile_form_of_the_letters_equals_the_letters_form():
+    """The profile a query's letters and corrections make (submat rows plus
+    the correction) rescores as the letters form does."""
+    case = make_case(seed=1)
+    cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad, corr, m, q_len = \
+        case
+    prof = np.zeros(q_pad.shape + (tr.PROFILE_WIDTH,), np.int8)
+    for b in range(len(q_len)):
+        prof[b] = tr.profile_rows(m[q_pad[b].astype(np.int64)]
+                                  + corr[b].astype(np.int32)[:, None])
+    got = tr.diag_rescore_profile(*as_torch(
+        (cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, prof, q_len)))
+    assert torch.equal(got, tr.diag_rescore(*as_torch(case)))
+
+
+@pytest.mark.parametrize("count", ["zero", "all", "cvalid-past-count"])
+def test_profile_plain_takes_the_valid_count(count):
+    case = list(make_profile_case(seed=7, n_cand=400))
+    n = len(case[0])
+    k = dict(zero=0, all=n, **{"cvalid-past-count": 250})[count]
+    if count == "cvalid-past-count":
+        case[3] = case[3].copy()
+        case[3][k:k + 60] = True
+        case[0] = np.where(case[3], case[0] % 6, I32_MAX).astype(np.int32)
+        case[1] = np.where(case[3], case[1] % 40, I32_MAX).astype(np.int32)
+    want = kadane_profile(case)
+    want[k:] = 0
+    for shape in ((), (1,)):
+        nv = torch.full(shape, k, dtype=torch.int32)
+        got = tr.diag_rescore_profile(*as_torch(case), nv).numpy()
+        assert np.array_equal(got, want)
+    if count == "cvalid-past-count":
+        assert want[:k].any() and kadane_profile(case)[k:].any()
+
+
+def test_profile_wrapper_checks_its_inputs():
+    case = make_profile_case(seed=6, n_cand=50)
+    args = as_torch(case)
+    before = tr.diag_rescore_profile.launches
+    got = tr.diag_rescore_profile(*args)
+    assert tr.diag_rescore_profile.launches == before   # the plain version
+    assert got.dtype == torch.int32 and got.shape == (50,)
+    bad = list(args)
+    bad[7] = bad[7][:, :, :21].contiguous()
+    with pytest.raises(ValueError, match="prof"):
+        tr.diag_rescore_profile(*bad)
+    bad = list(args)
+    bad[7] = bad[7].to(torch.int32)
+    with pytest.raises(TypeError, match="prof"):
+        tr.diag_rescore_profile(*bad)
+    bad = list(args)
+    bad[8] = bad[8][:-1]
+    with pytest.raises(ValueError, match="q_len"):
+        tr.diag_rescore_profile(*bad)
+    with pytest.raises(TypeError, match="n_valid"):
+        tr.diag_rescore_profile(*args, 5)
+
+
+def test_profile_rows_never_clamp():
+    rows = np.array([[-128, 127, 0], [5, -6, 7]])
+    got = tr.profile_rows(rows)
+    assert got.shape == (2, tr.PROFILE_WIDTH) and got.dtype == np.int8
+    assert np.array_equal(got[:, :3], rows) and not got[:, 3:].any()
+    for v in (128, -129):
+        with pytest.raises(ValueError, match="int8"):
+            tr.profile_rows(np.array([[0, v]]))
+    with pytest.raises(ValueError):
+        tr.profile_rows(np.zeros((3, 33), np.int64))
 
 
 # -- a model of the CUDA kernel's decomposition -------------------------------
@@ -548,3 +690,121 @@ def test_flush_record_counts_the_rescore(device):
     assert np.array_equal(hist, np.bincount(
         np.minimum(cells[cells >= 0] // pdev.WINDOW_BIN,
                    pdev.WINDOW_BINS - 1), minlength=pdev.WINDOW_BINS))
+
+
+# -- the profile form on the card ----------------------------------------------
+
+def run_both_profile(case, k, device):
+    nv = None if k is None else torch.tensor(k, dtype=torch.int32)
+    want = tr.diag_rescore_profile_plain(*as_torch(case), nv)
+    before = tr.diag_rescore_profile.launches
+    got = tr.diag_rescore_profile(*as_torch(case, device),
+                                  None if nv is None else nv.to(device))
+    torch.cuda.synchronize()
+    assert tr.diag_rescore_profile.launches == before + 1
+    return got.cpu(), want
+
+
+def with_count_profile(case, count):
+    case = list(case)
+    if count == "none":
+        return case, None, kadane_profile(case)
+    k = 0 if count == "zero" else len(case[0]) // 2
+    case[3] = case[3].copy()
+    case[3][k:] = True                        # stale slots past the count
+    case[0] = np.where(case[3], case[0] % len(case[8]), 0).astype(np.int32)
+    case[1] = np.where(case[3], case[1] % len(case[6]), 0).astype(np.int32)
+    want = kadane_profile(case)
+    want[k:] = 0
+    return case, k, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", ["none", "below", "zero"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_profile_kernel_matches_plain(cuda_device, name, count):
+    case, k, want = with_count_profile(make_profile_case(**CASES[name]),
+                                       count)
+    got, plain = run_both_profile(case, k, cuda_device)
+    assert torch.equal(got, plain)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 1, 3, 7, 15])
+@pytest.mark.parametrize("counted", [False, True])
+def test_profile_kernel_with_many_slots_and_shifted_store(cuda_device, shift,
+                                                          counted):
+    """3,000 valid candidates in 2^16 slots, stale candidates past them,
+    and the target store shifted by `shift` bytes (windows at every
+    alignment; the last target's window ends at the store's end)."""
+    case = list(make_profile_case(seed=11, n_cand=3000, n_t=200))
+    case[4] = np.concatenate([np.full(shift, 3, np.int8), case[4]])
+    case[5] = case[5] + shift
+    pad = (1 << 16) - 3000
+    rng = np.random.default_rng(12)
+    case[0] = np.concatenate([case[0], rng.integers(0, 6, pad)]).astype(
+        np.int32)
+    case[1] = np.concatenate([case[1], rng.integers(0, 200, pad)]).astype(
+        np.int32)
+    case[2] = np.concatenate([case[2], np.zeros(pad, np.int32)])
+    case[3] = np.concatenate([case[3], np.arange(pad) % 4 == 0])
+    got, plain = run_both_profile(case, 3000 if counted else None,
+                                  cuda_device)
+    assert torch.equal(got, plain)
+    assert got[:3000].any()
+    if counted:
+        assert (got[3000:] == 0).all()
+    else:
+        assert np.array_equal(got.numpy(), kadane_profile(case))
+
+
+@pytest.mark.cuda
+def test_profile_kernel_windows_at_the_run_boundaries(cuda_device):
+    """boundary_case's windows (the edges of a lane's run and of a group's
+    pass) with query 0's profile rows built from its letters."""
+    case = boundary_case()
+    cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, q_pad, corr, m, q_len = \
+        case
+    prof = np.zeros(q_pad.shape + (tr.PROFILE_WIDTH,), np.int8)
+    for b in range(len(q_len)):
+        prof[b] = tr.profile_rows(m[q_pad[b].astype(np.int64)]
+                                  + corr[b].astype(np.int32)[:, None])
+    pcase = (cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, prof, q_len)
+    got, plain = run_both_profile(pcase, None, cuda_device)
+    assert torch.equal(got, plain)
+    assert np.array_equal(got.numpy(), kadane(case))
+    assert got.max() > 0
+
+
+@pytest.mark.cuda
+def test_profile_flush_on_the_card_equals_the_cpu(cuda_device):
+    """A profile-query flush through device_match_pre on the card against
+    the same flush on the CPU."""
+    from mmseqs2_tpu_torch.prefilter.device import device_match_pre
+    n_q, n_t, tb, h = 6, 40, 6, 6000
+    _, _, _, _, t_cat, t_off, t_len, prof, q_len = make_profile_case(
+        seed=9, n_t=n_t, n_q=n_q)
+    rng = np.random.default_rng(10)
+    qid = np.sort(rng.integers(0, n_q, size=h))
+    qtid = ((qid << tb) | rng.integers(0, n_t, size=h)).astype(np.int32)
+    qtid[-50:] = I32_MAX
+    diag = (rng.integers(-3, 4, size=h) + 256 * rng.integers(0, 2, size=h)
+            ).astype(np.int16)
+    identity = np.array([-1, 3, -1, 0, 7, -1], np.int32)
+    arrays = (qtid, diag, t_cat, t_off, t_len)
+    kw = dict(n_q=n_q, max_hits=5, min_diag_thr=15, out_sz=n_q * 5, tb=tb,
+              q_pad=None, corr=None, submat=None)
+
+    def run(dev):
+        t = as_torch(arrays, dev)
+        p, ql, ident = as_torch((prof, q_len, identity), dev)
+        return device_match_pre(*t, q_len=ql, identity=ident, prof=p, **kw)
+    want = run("cpu")
+    before = tr.diag_rescore_profile.launches
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert tr.diag_rescore_profile.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(want[1][1]) > n_q          # hits were kept

@@ -275,21 +275,14 @@ QDB = GOLDEN / "qdb"
 
 UNPORTED = {
     "prefilter nucleotide": ["prefilter", NUCL, NUCL, "{out}"],
-    "prefilter profile query": ["prefilter", PROFILE, QDB, "{out}"],
-    "prefilter profile target": ["prefilter", QDB, PROFILE, "{out}"],
     "prefilter --taxon-list": ["prefilter", QDB, QDB, "{out}",
                                "--taxon-list", "9606"],
     "prefilter --split 2": ["prefilter", QDB, QDB, "{out}", "--split", "2"],
     "prefilter automatic split": ["prefilter", QDB, QDB, "{out}",
                                   "--split-memory-limit", "100K"],
-    "search --exhaustive-search": ["search", QDB, QDB, "{out}", "{tmp}",
-                                   "--exhaustive-search", "1"],
-    "search profile target": ["search", QDB, PROFILE, "{out}", "{tmp}"],
     "search nucleotide": ["search", NUCL, NUCL, "{out}", "{tmp}",
                           "--search-type", "3"],
     "search translated": ["search", NUCL, QDB, "{out}", "{tmp}"],
-    "search --num-iterations 2": ["search", QDB, QDB, "{out}", "{tmp}",
-                                  "--num-iterations", "2"],
     "search --lca-search": ["search", QDB, QDB, "{out}", "{tmp}",
                             "--lca-search", "1"],
     "search --prefilter-mode 3": ["search", QDB, QDB, "{out}", "{tmp}",
