@@ -35,7 +35,12 @@ caught. Phases, each printing lines before the last:
      prefilter's shapes (2^10 to 2^17 candidates, a flush's 2^21 slots,
      edge diagonals, all-negative, stale candidates past the count, a moved
      store, windows at both ends of the store; each without and with the
-     count), its rows made from it_profile_0;
+     count), its rows made from it_profile_0; and posting_expand (B6, the
+     posting expansion of the device candidate stage) at the flush shapes
+     (128 queries, 2^10 to 2^21 expansions into entries of a real-size
+     index's length, zero-count and pad triples, lists at both ends of the
+     entries, 2^17 pad slots, and a real flush of 128 toy queries on the
+     toy DB's index), with GB/s and its share of the byte bound;
   4. golden parity: the port's `align` on the 500-query toy set equals the
      reference MMseqs2 goldens (tests/golden/toy, tests/golden/alt): default
      and non-default scoring, --alt-ali, --corr-score-weight (--realign is
@@ -86,7 +91,8 @@ caught. Phases, each printing lines before the last:
      prefilter, align and convertalis, no synthetic prefilter DB; every
      kernel's launch count is set to 0 just before and read just after;
      wall time, queries/s, the split of the wall, the queries that took the
-     host-oracle route, the hits, sw_multi's launches by form and its
+     host-oracle route (and no posting_expand launch: up to 2^22 targets
+     the postings expand on the host), the hits, sw_multi's launches by form and its
      computed cells against those needed; the first 32 queries' lines equal
      phase 4's run of them with the CPU requested; then the prefilter step
      once more under
@@ -116,7 +122,7 @@ caught. Phases, each printing lines before the last:
      more under torch.profiler), no gapped hit below its gapless score,
      and a sub-DB run equal on the card and the CPU (phase 4's run);
   8. clustering at real size, on phase 5's targets: `easy-linclust` of the
-     first 25,000 with the defaults, and `easy-cluster` of the first 5,000
+     first 25,000 with the defaults, and `easy-cluster` of the first 3,000
      (cuts for time) at MMseqs2's README parameters (--min-seq-id 0.5 -c 0.8
      --cov-mode 1), every kernel's count set to 0 just before each and read
      just after: wall, sequences/s, clusters, the wall by step,
@@ -146,7 +152,16 @@ caught. Phases, each printing lines before the last:
      align under torch.profiler in that run (their seconds include what
      tracing costs); the first 16 queries' entries equal phase 4's CPU
      subprocess's (by query name);
-then one JSON line listing every kernel (eight entry points), with its
+ 10. large target DBs: one real flush of 128 queries on phase 6's index
+     through the route past the packed key (the postings expand on the
+     card) gives the packed route's hits, posting_expand held against its
+     plain version on it; then `prefilter` of the 1,000 queries against
+     the 50,000 targets with a --split-memory-limit under which the
+     automatic split count is 3, whose entries must be phase 6's unsplit
+     prefilter's: the wall, each split's index build and candidate stage,
+     stage-0, the merge, the bytes spilled, posting_expand's and
+     diag_rescore's launches;
+then one JSON line listing every kernel (nine entry points), with its
 launches on the clustering and iterative paths beside those of the path
 that launches it;
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without a
@@ -170,7 +185,7 @@ GOLDEN = ROOT / "tests" / "golden" / "toy"
 WORK = ROOT / ".smoke_work"
 SEED = 20261016
 # every kernel source of the port, csrc/<name>.cu: a new kernel adds a name
-KERNEL_SOURCES = ("sw", "rescore", "gapless")
+KERNEL_SOURCES = ("sw", "rescore", "gapless", "expand")
 # targets of the real-size phases: the size of the reference's small bench
 # run (experiments/make_scale_db.py); the 1,000 queries stay
 N_TARGETS = 50_000
@@ -211,6 +226,20 @@ GAPLESS_OPS_PER_CELL = {("gapless", "int32"): 3,
                         ("gapless_score", "int32"): 2,
                         ("gapless", "int16"): 0.75,
                         ("gapless_score", "int16"): 0.75}
+# the posting expansion (B6, csrc/expand.cu): bytes each expansion must
+# move (a u32 id and a u16 position of the index in, an int64 key and a u16
+# diagonal out), each triple (the least the function needs in: starts
+# int64, qpos and qid int32, and the list's length in 32 bits, as counts
+# or as a running sum, since a flush's total stays below 2^31; the
+# wrapper's interface passes both counts and an int64 running sum, 12 B
+# more, which the bound does not credit) and each pad slot (its key and
+# diagonal out); int32
+# operations an expansion at the least: the entry's offset in its list and
+# its index, the key's shift-or, the diagonal's subtraction
+EXPAND_BYTES_PER_EXPANSION = 16
+EXPAND_BYTES_PER_TRIPLE = 20
+EXPAND_BYTES_PER_PAD = 10
+EXPAND_OPS_PER_EXPANSION = 4
 
 
 _PHASE_T0 = [time.perf_counter()]
@@ -1143,6 +1172,149 @@ def phase_rescore_profile_kernel():
     return rows
 
 
+# -- the posting expansion (B6) -------------------------------------------------
+
+def expand_bound_ms(k, total, cap):
+    """Least time of one posting_expand launch over k triples, total
+    expansions and cap slots: its bytes (EXPAND_BYTES_PER_*) at the card's
+    memory rate, or EXPAND_OPS_PER_EXPANSION int32 operations an expansion,
+    whichever takes longer. Returns (ms, bound_by, bytes)."""
+    nbytes = (total * EXPAND_BYTES_PER_EXPANSION + k * EXPAND_BYTES_PER_TRIPLE
+              + (cap - total) * EXPAND_BYTES_PER_PAD)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = total * EXPAND_OPS_PER_EXPANSION / INT32_OPS_PER_S
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations", nbytes)
+
+
+def expand_entries(rng, n_targets=N_TARGETS):
+    """Index entries of the size a real-size index holds (one a residue of
+    N_TARGETS SwissProt-like targets): ids ascending as an index's lists
+    hold them, positions below 2,000."""
+    n = int(lengths(rng, n_targets).sum())
+    seq = np.sort(rng.integers(0, n_targets, size=n)).astype(np.int32)
+    pos = rng.integers(0, 2000, size=n).astype(np.uint16)
+    return seq, pos
+
+
+def expand_case(rng, n_exp, ent, n_q=128, mean_len=2.0, n_pad=64):
+    """CSR triples of a flush of n_q queries and about n_exp expansions
+    into the entries `ent`: list lengths geometric with mean mean_len, a
+    tenth of the triples empty, the first list at the first entry and one
+    ending at the last, n_pad pad triples (count 0) at the end. Returns the
+    triples (starts, counts, qpos, qid)."""
+    n_e = len(ent[0])
+    k = max(n_exp // int(mean_len), 4)
+    counts = rng.geometric(1 / mean_len, size=k)
+    counts[rng.random(k) < 0.1] = 0
+    starts = rng.integers(0, n_e - counts + 1)
+    starts[1] = 0
+    starts[k // 2] = n_e - counts[k // 2]
+    qid = np.sort(rng.integers(0, n_q, size=k))
+    qpos = rng.integers(0, 1500, size=k)
+    pad = np.zeros(n_pad, np.int64)
+    return (np.concatenate([starts, pad]).astype(np.int64),
+            np.concatenate([counts, pad]).astype(np.int32),
+            np.concatenate([qpos, pad]).astype(np.int32),
+            np.concatenate([qid, pad + n_q - 1]).astype(np.int32))
+
+
+def toy_flush(n_q=128):
+    """A real flush's triples on a real index: the toy DB's index at -s
+    5.7 (the prefilter's defaults) and its first n_q queries' stage-0, as
+    the command prepares them. Returns (triples, entries)."""
+    from mmseqs2_tpu_torch.commands import prefilter_kmer as pk
+    from mmseqs2_tpu_torch.commands.common import EncodedDB, open_seq_db
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    from mmseqs2_tpu_torch.prefilter.device import DevicePrefilter
+    from mmseqs2_tpu_torch.prefilter.kmer_generator import (KmerGenerator,
+                                                            SubKmerScores)
+    seed = get_submat("VTML80.out", 8.0, -0.2)
+    alpha = seed.alphabet_size - 1
+    db = EncodedDB(open_seq_db(str(GOLDEN / "qdb")), seed)
+    thr = pk.get_kmer_threshold(5.7, 6)
+    table = pk.build_index(db, seed, 6, thr, True, 0.9, False, True, "")
+    gen = KmerGenerator(
+        6, alpha, SubKmerScores(seed.sub_matrix, alpha, 3).attach_disk_cache(),
+        SubKmerScores(seed.sub_matrix, alpha, 2).attach_disk_cache())
+    dev = DevicePrefilter(table, seed, get_submat("blosum62.out", 2.0, -0.2),
+                          thr, 6, 300, generator=gen)
+    prep = [dev.prepare_query(db.seq_num(i)) for i in range(n_q)]
+    trip = (np.concatenate([p[0] for p in prep]),
+            np.concatenate([p[1] for p in prep]),
+            np.concatenate([p[2] for p in prep]),
+            np.concatenate([np.full(len(p[1]), b, np.int32)
+                            for b, p in enumerate(prep)]))
+    return trip, (np.asarray(table.entries_seq).astype(np.int32),
+                  np.asarray(table.entries_pos).astype(np.uint16))
+
+
+def expand_row(label, trip, ent, cap, reps=9):
+    """posting_expand against its plain version on the card (exact
+    equality) for one flush: ms by CUDA events, the plain version's, GB/s
+    over the bytes the flush needs, and the byte bound."""
+    import torch
+    from mmseqs2_tpu_torch.ops import expand
+    t = [torch.from_numpy(a).cuda() for a in trip]
+    e_seq = torch.from_numpy(ent[0]).cuda()
+    e_pos = torch.from_numpy(ent[1].view(np.int16)).cuda()
+    cum = torch.cumsum(t[1], 0, dtype=torch.int64)
+    total_t = cum[-1]
+    args = (t[0], t[1], t[2], t[3], cum, e_seq, e_pos, total_t, cap)
+    got = expand.posting_expand(*args)
+    want = expand.posting_expand_plain(*args)
+    torch.cuda.synchronize()
+    equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    err = int((got[1].int() - want[1].int()).abs().max()) if cap else 0
+    keys_differ = int((got[0] != want[0]).sum())
+    ms = device_ms(lambda: expand.posting_expand(*args), reps)
+    plain_ms = time_ms(lambda: expand.posting_expand_plain(*args), 2)
+    total, k = int(total_t), len(trip[0])
+    bound, by, nbytes = expand_bound_ms(k, total, cap)
+    row = dict(case=f"{label} triples={k} expansions={total} slots={cap} "
+               f"entries={len(ent[0])}", equal=equal, max_abs_err=err,
+               keys_differ=keys_differ, ms=ms, plain_ms=plain_ms,
+               bytes=nbytes,
+               gb_per_s=nbytes / ms / 1e6, bound_ms=bound, bound_by=by,
+               bound_share=bound / ms, library_ms=None,
+               zero_count_triples=int((trip[1] == 0).sum()))
+    log("expand-case " + json.dumps(row))
+    if not equal:
+        raise AssertionError(f"posting_expand differs from its plain "
+                             f"version: {row['case']} ({keys_differ} keys, "
+                             f"diagonals by up to {err})")
+    return row
+
+
+EXPAND_CASES = [1 << 10, 1 << 13, 1 << 16, 1 << 19, 1 << 21]
+
+
+def phase_expand_kernel():
+    """posting_expand (B6) against its plain version at the flush shapes:
+    128 queries and 2^10 to 2^21 expansions into entries of a real-size
+    index's length (zero-count and pad triples, lists at both ends of the
+    entries), 2^21 expansions with 2^17 pad slots, and a real flush on a
+    real index (the toy DB's, its first 128 queries). From its own
+    generator, so that the later phases' data stay those of the earlier
+    runs."""
+    rng = np.random.default_rng(SEED + 13)
+    ent = expand_entries(rng)
+    rows = []
+    for n in EXPAND_CASES:
+        trip = expand_case(rng, n, ent)
+        total = int(trip[1].sum())
+        rows.append((dict(n=n), expand_row("synthetic", trip, ent, total)))
+    trip = expand_case(rng, 1 << 21, ent)
+    total = int(trip[1].sum())
+    rows.append((dict(n=1 << 21, pad=True),
+                 expand_row("synthetic+pad", trip, ent, total + (1 << 17))))
+    trip, toy_ent = toy_flush()
+    rows.append((dict(toy=True), expand_row(
+        "toy-index flush of 128 queries", trip, toy_ent,
+        int(trip[1].sum()))))
+    return rows
+
+
 # -- CLI helpers -------------------------------------------------------------------
 
 def run_cli(args, cpu=False):
@@ -1931,7 +2103,7 @@ def phase_easy_search(check, n_queries=1_000):
     import torch
     from mmseqs2_tpu_torch.align import aligner
     from mmseqs2_tpu_torch.commands import prefilter_kmer
-    from mmseqs2_tpu_torch.ops import rescore, sw
+    from mmseqs2_tpu_torch.ops import expand, rescore, sw
     from mmseqs2_tpu_torch.workflow import engine
 
     tmp = WORK / "es_tmp"
@@ -1943,6 +2115,7 @@ def phase_easy_search(check, n_queries=1_000):
     sw.sw_multi.form_launches = dict.fromkeys(sw.sw_multi.form_launches, 0)
     rescore.diag_rescore.launches = 0
     sw.sw_offset.launches = 0
+    expand.posting_expand.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run_cli(["easy-search", WORK / "queries.fasta", WORK / "targets.fasta",
@@ -1955,6 +2128,10 @@ def phase_easy_search(check, n_queries=1_000):
         if n <= 0:
             raise AssertionError(f"the easy-search run launched no {name} "
                                  f"kernel")
+    # up to 2^22 targets the main path expands its postings on the host
+    if expand.posting_expand.launches:
+        raise AssertionError("the easy-search run expanded its postings on "
+                             "the card")
     steps = dict(engine.STEP_SECONDS)
     pst, ast = dict(prefilter_kmer.STATS), dict(aligner.STATS)
     got = m8_by_query(WORK / "es.m8")
@@ -2065,6 +2242,158 @@ def phase_index_search(easy, n_queries):
         raise AssertionError(f"easy-search against the prebuilt index "
                              f"differs for queries {bad[:10]}")
     return res
+
+
+def route_flush(n_q=128):
+    """The route past the packed key on one real flush of phase 6's target
+    DB: its createindex index, loaded as the prefilter loads it, and the
+    first n_q queries of phase 5's query DB, prepared as the command
+    prepares them, matched by the packed route and by the route: a second
+    DevicePrefilter of the same index with the flag that a DB past 2^22
+    targets sets (device_expansion), whose prepare_query leaves the lists
+    unexpanded and whose match_batch sends the flush to posting_expand on
+    the card. The hits must be the same, the packed route must upload no
+    index entries, and posting_expand is held against its plain version on
+    the flush's triples."""
+    import torch
+    from mmseqs2_tpu_torch.commands import prefilter_kmer as pk
+    from mmseqs2_tpu_torch.commands.common import EncodedDB, open_seq_db
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    from mmseqs2_tpu_torch.ops import expand
+    from mmseqs2_tpu_torch.prefilter.device import DevicePrefilter
+    from mmseqs2_tpu_torch.prefilter.index_io import (index_path_for,
+                                                      load_index)
+    from mmseqs2_tpu_torch.prefilter.kmer_generator import (KmerGenerator,
+                                                            SubKmerScores)
+    from mmseqs2_tpu_torch.prefilter.query_matcher import QueryMatcher
+    table, meta = load_index(index_path_for(str(WORK / "tdb")))
+    seed = get_submat("VTML80.out", 8.0, -0.2)
+    ungapped = get_submat("blosum62.out", 2.0, -0.2)
+    alpha, k = seed.alphabet_size - 1, table.k
+    thr = pk.get_kmer_threshold(5.7, k)
+    if meta.get("kmer_thr") != thr:
+        raise AssertionError(f"phase 6's index has threshold "
+                             f"{meta.get('kmer_thr')}, not {thr}")
+    gen = KmerGenerator(
+        k, alpha, SubKmerScores(seed.sub_matrix, alpha, 3).attach_disk_cache(),
+        SubKmerScores(seed.sub_matrix, alpha, 2).attach_disk_cache())
+    host = QueryMatcher(table, seed, ungapped, thr, k, 300, generator=gen)
+    dev = DevicePrefilter(table, seed, ungapped, thr, k, 300, generator=gen,
+                          host_fallback=host)
+    route_dev = DevicePrefilter(table, seed, ungapped, thr, k, 300,
+                                generator=gen, host_fallback=host)
+    route_dev.device_expansion = True
+    qdb = EncodedDB(open_seq_db(str(WORK / "qdb")), seed)
+    queries = [qdb.seq_num(i) for i in range(n_q)]
+    prepared = [dev.prepare_query(q) for q in queries]
+    route_prepared = [route_dev.prepare_query(q) for q in queries]
+    if any(p[5] is not None for p in route_prepared):
+        raise AssertionError("the route's stage-0 expanded on the host")
+    idents = [-1] * n_q
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    packed = dev.match_batch(queries, idents, prepared=prepared)
+    t1 = time.perf_counter()
+    if dev._d_entries is not None:
+        raise AssertionError("the packed route uploaded the index entries")
+    expand.posting_expand.launches = 0
+    route = route_dev.match_batch(queries, idents, prepared=route_prepared)
+    t2 = time.perf_counter()
+    launches = expand.posting_expand.launches
+    bad = [b for b in range(n_q) if route[b] != packed[b]]
+    trip = (np.concatenate([p[0] for p in route_prepared]),
+            np.concatenate([p[1] for p in route_prepared]),
+            np.concatenate([p[2] for p in route_prepared]),
+            np.concatenate([np.full(len(p[1]), b, np.int32)
+                            for b, p in enumerate(route_prepared)]))
+    total = int(trip[1].sum())
+    res = dict(queries=n_q, triples=len(trip[0]), expansions=total,
+               hits=sum(map(len, route)), packed_route_s=t1 - t0,
+               route_s=t2 - t1, posting_expand_launches=launches,
+               entries_bytes_uploaded=sum(
+                   t.numel() * t.element_size()
+                   for t in route_dev._d_entries),
+               host_oracle_queries=dev.host_oracle_queries
+               + route_dev.host_oracle_queries)
+    log("route past the packed key " + json.dumps(res))
+    if bad or launches < 1:
+        raise AssertionError(f"the route past the packed key differs from "
+                             f"the packed route for queries {bad[:10]} "
+                             f"({launches} posting_expand launches)")
+    ent = (np.asarray(table.entries_seq).astype(np.int32),
+           np.asarray(table.entries_pos).astype(np.uint16))
+    res["kernel"] = expand_row(f"real flush of {n_q} queries on phase 6's "
+                               f"index", trip, ent, total)
+    return res
+
+
+def split_prefilter(easy, min_splits=3):
+    """Target-split mode at real size: `prefilter` of phase 5's 1,000
+    queries against its 50,000 targets (phase 6's createdb DBs) at -s 5.7,
+    with the --split-memory-limit under which _auto_split_count gives
+    min_splits splits; every kernel's count set to 0 just before and read
+    just after: the wall, each split's index build and candidate stage,
+    stage-0, the merge, the bytes spilled, the device calls and the
+    launches, beside phase 6's unsplit prefilter of the same inputs, whose
+    entries (its tmp's pref_0) the run must give entry for entry."""
+    import torch
+    from mmseqs2_tpu_torch.commands import prefilter_kmer as pk
+    from mmseqs2_tpu_torch.commands.common import open_seq_db
+    tmp = WORK / "es_tmp"
+    treader = open_seq_db(str(tmp / "target"))
+    need = int((6 + 1) * treader.total_residues() + 16 * treader.size) * 2
+    limit = need // min_splits + 1
+    out = WORK / "pref_split"
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    pk.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_cli(["prefilter", tmp / "query", tmp / "target", out, "-s", "5.7",
+             "--split-memory-limit", limit])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+    st = dict(pk.STATS)
+    n_splits = len(st["split_index_s"])
+    got, want = entries(out), entries(tmp / "search_tmp" / "pref_0")
+    bad = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+    res = dict(
+        splits=n_splits, split_memory_limit_bytes=limit,
+        index_footprint_bytes=need, queries=st["queries"], wall_s=wall,
+        queries_per_s=st["queries"] / wall,
+        split_index_build_s=st["split_index_s"],
+        split_candidate_stage_s=st["split_candidates_s"],
+        stage0_worker_sum_s=st["prep_s"], merge_s=st["split_merge_s"],
+        spill_bytes=st["split_spill_bytes"], device_calls=st["flushes"],
+        hits=st["hits"], launches=launches,
+        spill_left=os.path.exists(f"{out}.split_tmp"),
+        unsplit=dict(prefilter_s=easy["prefilter_s"],
+                     index_build_s=easy["prefilter"]["index_build_s"],
+                     stage0_worker_sum_s=easy["prefilter"][
+                         "stage0_worker_sum_s"],
+                     flushes=easy["prefilter"]["flushes"],
+                     hits=easy["prefilter"]["prefilter_hits"]))
+    log("split prefilter " + json.dumps(res))
+    log(f"automatic target split: {n_splits} splits; entries equal to the "
+        f"unsplit prefilter's: {len(want) - len(bad)} of {len(want)}")
+    if n_splits < min_splits or res["spill_left"]:
+        raise AssertionError(f"{n_splits} splits, spill left: "
+                             f"{res['spill_left']}")
+    if bad or not want:
+        raise AssertionError(f"the split prefilter differs from the unsplit "
+                             f"one for queries {bad[:10]}")
+    for name in ("posting_expand", "diag_rescore"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"the split prefilter launched no {name}")
+    return res
+
+
+def phase_large_db(easy):
+    """Large target DBs: the route past the packed key on a real flush
+    (route_flush), then target-split mode at real size (split_prefilter)."""
+    return dict(route=route_flush(), split=split_prefilter(easy))
 
 
 def rescore_record(log_, launches, focus):
@@ -2396,12 +2725,12 @@ def cluster_outputs_check(prefix, n_seqs):
 def kernel_wrappers():
     """Every kernel's wrapper by the kernel's name; each counts its
     launches in `.launches`."""
-    from mmseqs2_tpu_torch.ops import gapless, rescore, sw
+    from mmseqs2_tpu_torch.ops import expand, gapless, rescore, sw
     return dict(sw_multi=sw.sw_multi, diag_rescore=rescore.diag_rescore,
                 diag_rescore_profile=rescore.diag_rescore_profile,
                 gapless=gapless.gapless, gapless_score=gapless.gapless_score,
                 sw_single=sw.sw_single, sw_offset=sw.sw_offset,
-                sw_score=sw.sw_score)
+                sw_score=sw.sw_score, posting_expand=expand.posting_expand)
 
 
 def run_clustering(cmd, fasta, label, flags, focus=None):
@@ -2790,7 +3119,7 @@ def phase_iterative(check, n_queries=100, iterations=3):
     return res, traces
 
 
-def phase_clustering(check, n_linclust=25_000, n_cluster=5_000):
+def phase_clustering(check, n_linclust=25_000, n_cluster=3_000):
     """Clustering at real size on phase 5's SwissProt-like targets:
     easy-linclust of the first n_linclust with the defaults, easy-cluster of
     the first n_cluster at MMseqs2's README parameters (both cuts for the
@@ -2896,6 +3225,7 @@ def main():
         rrows = phase_rescore_kernel(rng)
         xrows = phase_exhaustive_kernels(rng)
         prows = phase_rescore_profile_kernel()
+        erows = phase_expand_kernel()
         phase_done(3)
 
         prof = server_profile(rng)
@@ -2927,6 +3257,10 @@ def main():
     # 9. the iterative profile search at real size
     it, it_traces = phase_iterative(rcheck)
     phase_done(9)
+
+    # 10. large target DBs: the route past the packed key, target splits
+    big = phase_large_db(easy)
+    phase_done(10)
 
     # kernels line; launches are those of the run of the path that
     # launches the kernel: easy-search, ungappedprefilter, the server's
@@ -3030,6 +3364,25 @@ def main():
             library_ms=None, equal=all(r["equal"] for _, r in krows),
             at=xrep["case"], launches_clustering=clu_launches[name],
             **path_forms.get(name, {})))
+    erep = next(r for c, r in erows if c.get("n") == 1 << 21
+                and not c.get("pad"))
+    kern.append(dict(
+        name="posting_expand", route="cuda",
+        source="mmseqs2_tpu_torch/csrc/expand.cu",
+        replaces="mmseqs2_tpu/prefilter/device_stages.py:236",
+        launches=big["split"]["launches"]["posting_expand"],
+        launches_route_past_key=big["route"]["posting_expand_launches"],
+        max_abs_err=max(r["max_abs_err"] for _, r in erows
+                        + [(None, big["route"]["kernel"])]),
+        ms=erep["ms"], plain_ms=erep["plain_ms"], bound_ms=erep["bound_ms"],
+        bound_by=erep["bound_by"], library_ms=None,
+        equal=all(r["equal"] for _, r in erows)
+        and big["route"]["kernel"]["equal"], at=erep["case"],
+        real_flush_ms=big["route"]["kernel"]["ms"],
+        real_flush_bound_ms=big["route"]["kernel"]["bound_ms"],
+        real_flush_at=big["route"]["kernel"]["case"],
+        launches_clustering=clu_launches["posting_expand"],
+        launches_iterative=it["launches"]["posting_expand"]))
     shutil.rmtree(WORK)
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(f"card: {card}")

@@ -15,11 +15,16 @@ prefilter/query_matcher.py, output `targetKey \\t diagScore \\t diagonal`.
 The batched device matcher (prefilter/device.py) runs whenever diagonal
 scoring is on, on the device that device.get_device() names; the host
 matcher serves --diag-score 0 and profile targets, and is the oracle of the
-device path. Nucleotide DBs, --taxon-list and target-split mode are not yet
+device path. Target-split mode (--split N, or the split count that
+_auto_split_count derives from --split-memory-limit or the card's memory)
+builds one index per contiguous slice of the targets and merges the
+per-split candidates exactly (_run_device_splits): its output is the
+unsplit run's, byte for byte. Nucleotide DBs and --taxon-list are not yet
 ported (see ROADMAP.md) and raise.
 """
 
 import os
+import shutil
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -32,12 +37,16 @@ from ..db import dbtype as dbt
 from ..db.writer import DBWriter
 from ..device import get_device
 from ..ops.tantan import likelihood_ratio_matrix, mask_batch
-from ..prefilter.device import NOT_PORTED, DevicePrefilter
+from ..ops.encode import calc_local_aa_bias
+from ..ops.rescore import profile_rows
+from ..prefilter.device import (NOT_PORTED, DevicePrefilter,
+                                bias_correction, query_triples)
 from ..prefilter.index_io import index_path_for, load_index, load_index_meta
 from ..prefilter.kmer_generator import (KmerGenerator, ProfileKmerGenerator,
                                         SubKmerScores)
 from ..prefilter.kmer_index import KmerIndexTable, pattern_offsets
 from ..prefilter.query_matcher import QueryMatcher
+from ..prefilter.split_merge import finalize_query, self_ungapped_score
 from ..profile.io import kmer_rows, parse_profile
 from ..utils import log
 from .common import EncodedDB, open_seq_db
@@ -52,16 +61,24 @@ INT_MAX = 2147483647
 # profile-query rescore profiles uploaded; with RECORD_RESCORE set, one
 # dict per flush's diag_rescore: its slots, valid candidates and the
 # histogram of its windows' lengths (prefilter/device.py: WINDOW_BIN cells
-# a bin).
+# a bin). Target-split mode adds per split its index build's and its
+# candidate stage's seconds (split_index_s, split_candidates_s, one entry a
+# split), the merge's seconds and the bytes spilled to <out>.split_tmp;
+# its stage-0 counts in prep_s, its device calls in flushes.
 STATS = {}
 RECORD_RESCORE = False
+# queries a chunk of target-split mode: one chunk's stage-0 and fragments
+# are in host memory at a time
+SPLIT_QCHUNK = 1024
 
 
 def reset_stats():
     STATS.clear()
     STATS.update(index_s=0.0, prep_s=0.0, dispatch_s=0.0, wait_s=0.0,
                  write_s=0.0, flushes=0, queries=0, host_oracle_queries=0,
-                 hits=0, profile_bytes=0, rescore=[])
+                 hits=0, profile_bytes=0, rescore=[], split_index_s=[],
+                 split_candidates_s=[], split_merge_s=0.0,
+                 split_spill_bytes=0)
 
 
 reset_stats()
@@ -93,10 +110,14 @@ def compute_kmer_size(residues: int) -> int:
 
 def build_index(tdb: EncodedDB, seed, kmer_size: int, kmer_thr: int,
                 mask: bool, mask_prob: float, mask_lower: bool,
-                spaced: bool, pattern: str):
+                spaced: bool, pattern: str, seq_range=None):
+    """seq_range=(lo, hi): build over a contiguous target slice with local
+    ids 0..hi-lo (the per-split index of the reference's target-split mode,
+    Prefiltering.cpp:755-786)."""
     alpha = seed.alphabet_size - 1      # X removed for seeding
     x_idx = seed.alphabet_size - 1
-    seqs = [tdb.seq_num(i).astype(np.uint8) for i in range(tdb.size)]
+    lo, hi = seq_range if seq_range is not None else (0, tdb.size)
+    seqs = [tdb.seq_num(i).astype(np.uint8) for i in range(lo, hi)]
     if mask:
         lr = likelihood_ratio_matrix(seed)
         masked, n_masked = mask_batch(seqs, lr, x_idx, mask_prob)
@@ -105,7 +126,7 @@ def build_index(tdb: EncodedDB, seed, kmer_size: int, kmer_thr: int,
         masked = seqs
     if mask_lower:
         for i, s in enumerate(masked):
-            raw = tdb.reader.get_seq(i)
+            raw = tdb.reader.get_seq(lo + i)
             lower = np.frombuffer(raw, dtype=np.uint8) >= ord('a')
             s = s.copy()
             s[lower[: len(s)]] = x_idx
@@ -211,6 +232,7 @@ def prefilter_kmer(par, command):
     target_is_profile = treader.base_type == dbt.DBTYPE_HMM_PROFILE
     if par.taxon_list:
         raise NotImplementedError(f"prefilter --taxon-list {NOT_PORTED}")
+    n_splits = 0
     if par.diag_score and not target_is_profile:
         n_splits = par.split if par.split_mode in (0, 2) else 0
         if n_splits == 0 and par.split_mode in (0, 2):
@@ -218,10 +240,9 @@ def prefilter_kmer(par, command):
             # target split count from the device-memory budget and the
             # index footprint
             n_splits = _auto_split_count(treader, par)
-        if n_splits > 1:
-            raise NotImplementedError(
-                f"target-split mode ({n_splits} splits of the target DB) "
-                f"{NOT_PORTED}")
+            if n_splits > 1:
+                log.info(f"Automatic target split: {n_splits} splits "
+                         f"(device memory budget)")
     if query_is_profile:
         # profile queries use the scoring matrix for target background only
         # (Prefiltering.cpp:72-77); index k-mer threshold is 0 (:555-557)
@@ -265,6 +286,12 @@ def prefilter_kmer(par, command):
 
     spaced = par.spaced_kmer_mode == 1
     alpha = seed.alphabet_size - 1
+    if query_is_profile or take_only_best or target_is_profile:
+        generator = None      # per-query rows / exact match / host matcher
+    else:
+        three = SubKmerScores(seed.sub_matrix, alpha, 3).attach_disk_cache()
+        two = SubKmerScores(seed.sub_matrix, alpha, 2).attach_disk_cache()
+        generator = KmerGenerator(kmer_size, alpha, three, two)
     t0 = time.perf_counter()
     if target_is_profile:
         # profile targets run on the host matcher (the reference's and the
@@ -282,6 +309,11 @@ def prefilter_kmer(par, command):
         return _run_host(par, qreader, treader, qdb, matcher,
                          query_is_profile, same_db, out_path, alpha)
     index_thr = 0 if query_is_profile else kmer_thr
+    if n_splits > 1:
+        return _run_device_splits(
+            par, qreader, treader, qdb, tdb, seed, ungapped, kmer_size,
+            kmer_thr, index_thr, spaced, generator, take_only_best,
+            query_is_profile, same_db, out_path, n_splits)
     table = None
     if idx_path is not None:
         try:
@@ -303,13 +335,6 @@ def prefilter_kmer(par, command):
                             par.mask_lower_case == 1, spaced,
                             par.spaced_kmer_pattern)
     log.info(f"Index table: {len(table.entries_seq)} k-mer positions")
-
-    if query_is_profile or take_only_best:
-        generator = None      # per-query rows / exact match only
-    else:
-        three = SubKmerScores(seed.sub_matrix, alpha, 3).attach_disk_cache()
-        two = SubKmerScores(seed.sub_matrix, alpha, 2).attach_disk_cache()
-        generator = KmerGenerator(kmer_size, alpha, three, two)
     STATS["index_s"] += time.perf_counter() - t0
 
     matcher = QueryMatcher(
@@ -426,7 +451,7 @@ def _run_device(par, qreader, treader, qdb, dev, query_is_profile, same_db,
         nonlocal batch, budget
         prep_s = item.pop("prep_s")
         STATS["prep_s"] += prep_s
-        vol = len(item["prep"][5])
+        vol = int(item["prep"][1].sum())
         if batch and (budget + vol > dev.H_CAP_FIXED
                       or len(batch) >= dev.B_PAD):
             flush()
@@ -452,6 +477,245 @@ def _run_device(par, qreader, treader, qdb, dev, query_is_profile, same_db,
     STATS["rescore"] += dev.rescore_log
     _print_statistics(None, reslens, qreader.size, par.max_seqs)
     return 0
+
+
+def _run_device_splits(par, qreader, treader, qdb, tdb, seed, ungapped,
+                       kmer_size, kmer_thr, index_thr, spaced, generator,
+                       take_only_best, query_is_profile, same_db, out_path,
+                       n_splits):
+    """Out-of-core target-split prefilter (the JAX package's
+    _run_device_splits; reference Prefiltering.cpp:755-786): per split an
+    index build over its contiguous slice of the targets and the device
+    candidate stage (DevicePrefilter.candidates_batch: posting_expand, the
+    sort, the rescore, keep-max), then the exact cross-split merge of
+    prefilter/split_merge.py. The output is byte-identical to the unsplit
+    run.
+
+    Queries go in chunks of SPLIT_QCHUNK: a chunk's stage-0 (k-mer codes
+    and positions, the rescore inputs) and its per-split candidate
+    fragments spill to <out>.split_tmp, removed at the end, so host memory
+    holds one chunk whatever the query count. Stage-0 runs in a thread
+    pool, as _run_device's does."""
+    nt, nq = treader.size, qreader.size
+    bounds = np.linspace(0, nt, n_splits + 1).astype(np.int64)
+    log.info(f"Target split mode: {n_splits} splits of ~"
+             f"{nt // max(n_splits, 1)} sequences")
+    alpha = seed.alphabet_size - 1
+    tmpdir = out_path + ".split_tmp"
+    os.makedirs(tmpdir, exist_ok=True)
+    n_chunks = max(1, -(-nq // SPLIT_QCHUNK))
+    # stage-0 needs the seed pattern only, no index
+    offsets_pat, span = pattern_offsets(kmer_size, spaced,
+                                        par.spaced_kmer_pattern)
+
+    def chunk_range(c):
+        return range(c * SPLIT_QCHUNK, min((c + 1) * SPLIT_QCHUNK, nq))
+
+    def spill(name, **arrays):
+        path = os.path.join(tmpdir, name)
+        np.savez(path, **arrays)
+        STATS["split_spill_bytes"] += os.path.getsize(path)
+
+    def stage0(qid):
+        """A query's key, identity, length, letters, k-mer codes and
+        positions, and rescore input: a profile query's (L, alpha + 1)
+        rows, a sequence query's bias correction."""
+        t0 = time.perf_counter()
+        key = qreader.get_db_key(qid)
+        item = dict(key=key, ident=_identity_id(par, qreader, treader,
+                                                same_db, key))
+        if query_is_profile:
+            p = parse_profile(qreader.get_data(qid))
+            gen, item["rows"] = profile_query(p, kmer_size, alpha,
+                                              offsets_pat)
+            q_num = p.query_num.astype(np.int64)
+            item["qlen"] = float(p.length)
+            comp_bias = np.zeros(len(q_num), np.float32)
+        else:
+            gen = generator
+            q_num = qdb.seq_num(qid)
+            item["qlen"] = float(qreader.get_seq_len(qid))
+            comp_bias = (calc_local_aa_bias(
+                q_num, seed.sub_matrix, seed.pback,
+                par.comp_bias_corr_scale) if par.comp_bias_corr
+                else np.zeros(len(q_num), np.float32))
+            item["corr"] = bias_correction(comp_bias)
+        item["codes"], item["qpos"] = query_triples(
+            q_num, comp_bias, offsets_pat, span, alpha, alpha, kmer_thr,
+            take_only_best, gen)
+        item["qnum"] = q_num.astype(np.int32)
+        item["prep_s"] = time.perf_counter() - t0
+        return item
+
+    def cat(items, name, empty):
+        return (np.concatenate([it[name] for it in items]) if items
+                else empty)
+
+    workers = min(8, os.cpu_count() or 4)
+    try:
+        # pass 0: each chunk's stage-0, spilled
+        qmeta = []
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            for c in range(n_chunks):
+                items = list(pool.map(stage0, chunk_range(c)))
+                STATS["prep_s"] += sum(it["prep_s"] for it in items)
+                qmeta += [dict(key=it["key"], ident=it["ident"],
+                               qlen=it["qlen"]) for it in items]
+                rows = (cat(items, "rows", np.zeros((0, alpha + 1)))
+                        if query_is_profile else np.zeros((0, alpha + 1)))
+                spill(f"q{c}.npz",
+                      codes=cat(items, "codes", np.zeros(0, np.int64)),
+                      qpos=cat(items, "qpos", np.zeros(0, np.int32)),
+                      k_of=np.array([len(it["codes"]) for it in items],
+                                    np.int64),
+                      qnum=cat(items, "qnum", np.zeros(0, np.int32)),
+                      n_of=np.array([len(it["qnum"]) for it in items],
+                                    np.int64),
+                      rows=rows.astype(np.int8),
+                      corr=(np.zeros(0, np.int8) if query_is_profile
+                            else cat(items, "corr", np.zeros(0, np.int8))))
+
+        def load_chunk(c):
+            z = dict(np.load(os.path.join(tmpdir, f"q{c}.npz")))
+            z["ko"] = np.concatenate([[0], np.cumsum(z["k_of"])])
+            z["no"] = np.concatenate([[0], np.cumsum(z["n_of"])])
+            return z
+
+        # per split: its index, then every chunk's candidate fragments
+        for s_i in range(n_splits):
+            lo, hi = int(bounds[s_i]), int(bounds[s_i + 1])
+            t0 = time.perf_counter()
+            table = build_index(tdb, seed, kmer_size, index_thr,
+                                par.mask == 1, par.mask_prob,
+                                par.mask_lower_case == 1, spaced,
+                                par.spaced_kmer_pattern, seq_range=(lo, hi))
+            dev = DevicePrefilter(
+                table, seed, ungapped, kmer_thr, kmer_size, par.max_seqs,
+                par.comp_bias_corr, par.comp_bias_corr_scale,
+                par.min_ungapped_score, generator,
+                take_only_best_kmer=take_only_best)
+            t1 = time.perf_counter()
+            STATS["split_index_s"].append(t1 - t0)
+            STATS["index_s"] += t1 - t0
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                for c in range(n_chunks):
+                    frags = _split_candidates(dev, load_chunk(c), lo,
+                                              query_is_profile, pool)
+                    spill(f"f{s_i}_{c}.npz", **frags)
+            STATS["split_candidates_s"].append(time.perf_counter() - t1)
+            del dev, table
+
+        # the exact cross-split merge, a chunk at a time
+        t0 = time.perf_counter()
+        writer = DBWriter(out_path, dbt.DBTYPE_PREFILTER_RES)
+        reslens = []
+        for c in range(n_chunks):
+            z = load_chunk(c)
+            fz = [dict(np.load(os.path.join(tmpdir, f"f{s}_{c}.npz")))
+                  for s in range(n_splits)]
+            f_of = [np.concatenate([[0], np.cumsum(f["n_of"])]) for f in fz]
+            e_of = [np.concatenate([[0], np.cumsum(f["e_of"])]) for f in fz]
+            for r, qid in enumerate(chunk_range(c)):
+                m = qmeta[qid]
+                ids, diags, scores = (np.concatenate(
+                    [f[name][f_of[s][r]:f_of[s][r + 1]]
+                     for s, f in enumerate(fz)])
+                    for name in ("ids", "diag", "sc"))
+                exacts = {}
+                for s, f in enumerate(fz):
+                    for (i, d), v in zip(f["ek"][e_of[s][r]:e_of[s][r + 1]],
+                                         f["ev"][e_of[s][r]:e_of[s][r + 1]]):
+                        exacts[(int(i), int(d))] = int(v)
+
+                def exact_fn(eids, ediags, _ex=exacts):
+                    return np.array([_ex[(int(i), int(d))]
+                                     for i, d in zip(eids, ediags)],
+                                    np.int64)
+
+                q_num = z["qnum"][z["no"][r]:z["no"][r + 1]].astype(np.int64)
+                if query_is_profile:
+                    prof = z["rows"][z["no"][r]:z["no"][r + 1]]
+                else:
+                    corr = z["corr"][z["no"][r]:z["no"][r + 1]]
+                    prof = ungapped.sub_matrix[q_num] + corr[:, None]
+                hits = finalize_query(
+                    ids, diags, scores, par.max_seqs, par.min_ungapped_score,
+                    m["ident"], exact_fn,
+                    self_ungapped_score(prof.astype(np.int64), q_num))
+                reslens.append(_write_hits(writer, par, treader, m["key"],
+                                           m["qlen"], hits))
+        writer.close()
+        STATS["split_merge_s"] += time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    STATS["queries"] += nq
+    STATS["hits"] += sum(reslens)
+    _print_statistics(None, reslens, nq, par.max_seqs)
+    return 0
+
+
+def _split_candidates(dev, z, lo, query_is_profile, pool):
+    """One chunk's candidate fragments against one split (dev holds its
+    index, local ids from 0; lo the split's first target): per query the
+    best candidate of each id (global ids ascending, u16 diagonals, capped
+    scores) and the exact scores of the saturated ones, as arrays for the
+    spill. The queries' posting-list lookups run in `pool` (random reads
+    of the index's offsets, as stage-0's in _run_device); the chunk goes
+    to the device in flushes of at most B_PAD queries and about
+    H_CAP_FIXED expansions, as _run_device's."""
+    out = dict(ids=[], diag=[], sc=[], ek=[], ev=[])
+    batch, queries, budget = [], [], 0
+
+    def flush():
+        nonlocal batch, queries, budget
+        if not batch:
+            return
+        STATS["flushes"] += 1
+        for ids, diags, scores, exacts in dev.candidates_batch(batch,
+                                                               queries):
+            out["ids"].append(ids + lo)
+            out["diag"].append(diags)
+            out["sc"].append(scores)
+            out["ek"].append(np.array([[i + lo, d] for (i, d) in exacts],
+                                      np.int64).reshape(-1, 2))
+            out["ev"].append(np.array(list(exacts.values()), np.int64))
+        batch, queries, budget = [], [], 0
+
+    def prepare(r):
+        """Query r's (starts, counts, qpos, rows, corr) against the split."""
+        codes = z["codes"][z["ko"][r]:z["ko"][r + 1]]
+        qpos = z["qpos"][z["ko"][r]:z["ko"][r + 1]]
+        st, ct = dev.index.lists(codes)
+        nz = ct > 0
+        rows = z["no"][r], z["no"][r + 1]
+        if query_is_profile:
+            return (st[nz].astype(np.int64), ct[nz].astype(np.int32),
+                    qpos[nz], profile_rows(z["rows"][rows[0]:rows[1]]), None)
+        return (st[nz].astype(np.int64), ct[nz].astype(np.int32), qpos[nz],
+                None, z["corr"][rows[0]:rows[1]])
+
+    for r, prep in enumerate(pool.map(prepare, range(len(z["k_of"])))):
+        vol = int(prep[1].sum())
+        if batch and (budget + vol > dev.H_CAP_FIXED
+                      or len(batch) >= dev.B_PAD):
+            flush()
+        batch.append(prep)
+        queries.append(z["qnum"][z["no"][r]:z["no"][r + 1]])
+        budget += vol
+    flush()
+    return dict(
+        ids=_cat(out["ids"], np.int64), diag=_cat(out["diag"], np.uint16),
+        sc=_cat(out["sc"], np.int64),
+        n_of=np.array([len(x) for x in out["ids"]], np.int64),
+        ek=(np.concatenate(out["ek"]) if out["ek"]
+            else np.zeros((0, 2), np.int64)),
+        ev=_cat(out["ev"], np.int64),
+        e_of=np.array([len(x) for x in out["ev"]], np.int64))
+
+
+def _cat(arrays, dtype):
+    return (np.concatenate(arrays).astype(dtype, copy=False) if arrays
+            else np.zeros(0, dtype))
 
 
 def _parse_mem_limit(s: str) -> int:

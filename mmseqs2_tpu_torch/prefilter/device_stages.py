@@ -6,7 +6,8 @@ on the device of its inputs. Semantics per stage are documented in
 prefilter/device.py; the host oracle is prefilter/query_matcher.py
 (reference: src/prefiltering/QueryMatcher.cpp). The ungapped diagonal
 rescore between the candidate stage and keep-max is the kernel of
-ops/rescore.py.
+ops/rescore.py; the posting expansion of stage_candidates is the kernel of
+ops/expand.py.
 
 No stage reads a value back to the host: each works on fixed-size buffers
 (the sizes of its inputs, or the capacities it is given) with a validity
@@ -18,6 +19,7 @@ dropped element.
 
 import torch
 
+from ..ops.expand import posting_expand
 from .query_matcher import UCHAR_MAX
 
 I32_MAX = 2147483647
@@ -45,19 +47,22 @@ def _compact(keep, pos, cap, fill, values):
 def sort_dup_packed(qtid, diag, tb):
     """Packed-key sort + double-diagonal detection.
 
-    qtid: (H,) i32 keys `qid << tb | id` in expansion order, I32_MAX for
-    invalid; diag: (H,) i32 whose low 16 bits are the diagonal. The sort is
-    stable: the double-diagonal rule depends on the order of one id's
-    entries. An id's first entry counts when its u8 diagonal is 0 (the
-    reference's byte-array quirk), a later one when it repeats its
-    predecessor's u8 diagonal; a "last duplicate wins" scan then drops the
-    repeats of one run. Returns (qtid, diag, valid, hqid, ids, cand) in
-    sorted order."""
+    qtid: (H,) keys `qid << tb | id` in expansion order: int32 with the
+    shift of a host-expanded flush, or int64 with tb 32 (the device
+    expansion's key, whose order is the JAX package's two-key (qid, id)
+    sort); the type's largest value marks an invalid slot. diag: (H,) i32
+    whose low 16 bits are the diagonal. The sort is stable: the
+    double-diagonal rule depends on the order of one id's entries. An id's
+    first entry counts when its u8 diagonal is 0 (the reference's
+    byte-array quirk), a later one when it repeats its predecessor's u8
+    diagonal; a "last duplicate wins" scan then drops the repeats of one
+    run. Returns (qtid, diag, valid, hqid, ids, cand) in sorted order, hqid
+    and ids int32 (I32_MAX where invalid)."""
     qtid, order = torch.sort(qtid, stable=True)
     diag = diag[order]
-    valid = qtid != I32_MAX
-    hqid = torch.where(valid, qtid >> tb, I32_MAX)
-    ids = torch.where(valid, qtid & ((1 << tb) - 1), I32_MAX)
+    valid = qtid != torch.iinfo(qtid.dtype).max
+    hqid = torch.where(valid, qtid >> tb, I32_MAX).to(i32)
+    ids = torch.where(valid, qtid & ((1 << tb) - 1), I32_MAX).to(i32)
     d8 = diag & 0xFF
     first_of_id = qtid != _shift1(qtid, -1)
     dup = torch.where(first_of_id, d8 == 0, d8 == _shift1(d8, 0)) & valid
@@ -93,6 +98,27 @@ def stage_candidates_pre(qtid, diag, *, c_cap, tb):
     cqid, cid, cdiag, cvalid, n_cand = compact_candidates(
         cand, hqid, ids, diag, c_cap=c_cap)
     return cqid, cid, cdiag, cvalid, n_cand, total
+
+
+def stage_candidates(starts, counts, qpos, qid, entries_seq, entries_pos,
+                     *, h_cap, c_cap):
+    """Candidate stage with the posting expansion on the device: the JAX
+    package's stage_candidates with nt=None. The CSR triples (starts int64,
+    counts, qpos, qid int32) expand through the posting_expand kernel
+    against the resident index entries (entries_seq int32, entries_pos
+    int16 with the u16 bits) into h_cap slots; then the stable sort on the
+    int64 key qid << 32 | id, the double-diagonal detection and the
+    compaction into c_cap slots. Returns (cqid, cid, cdiag, cvalid, n_cand,
+    total), total the expansions (int32, on the device)."""
+    cum = torch.cumsum(counts, 0, dtype=torch.int64)
+    total = cum[-1] if cum.numel() else cum.new_zeros(())
+    key, diag = posting_expand(starts, counts, qpos, qid, cum, entries_seq,
+                               entries_pos, total, h_cap)
+    diag = diag.to(i32) & 0xFFFF
+    key, diag, valid, hqid, ids, cand = sort_dup_packed(key, diag, 32)
+    cqid, cid, cdiag, cvalid, n_cand = compact_candidates(
+        cand, hqid, ids, diag, c_cap=c_cap)
+    return cqid, cid, cdiag, cvalid, n_cand, total.to(i32)
 
 
 def stage_keepmax(cqid, cid, cscore, cvalid, *, c_cap):

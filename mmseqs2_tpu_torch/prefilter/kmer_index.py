@@ -174,8 +174,9 @@ class KmerIndexTable:
         else:
             counts = np.bincount(kmers, minlength=self.table_size) \
                 if len(kmers) else np.zeros(self.table_size, dtype=np.int64)
-            self.offsets = np.concatenate([[0], np.cumsum(counts)]).astype(
-                np.int64)
+            # one pass into the result: the dense table has alpha^k slots
+            self.offsets = np.zeros(self.table_size + 1, dtype=np.int64)
+            np.cumsum(counts, out=self.offsets[1:])
         self.entries_seq = seqs.astype(np.int64)
         self.entries_pos = poss.astype(np.uint16)
         self.masked_seqs = masked_seqs

@@ -413,3 +413,186 @@ def test_index_saved_by_the_jax_package_loads_in_the_port(world, tmp_path):
     queries = [make_query(motifs) for _ in range(3)]
     assert dev.match_batch(queries, [-1] * 3) == \
         pair.dev.match_batch(queries, [-1] * 3)
+
+
+# -- the route past the packed key (the posting expansion on the device) -------
+
+TOY = __import__("pathlib").Path(__file__).parent / "golden" / "toy"
+
+
+@pytest.fixture(scope="module")
+def toy():
+    """Each package's DevicePrefilter over the toy DB's index at threshold
+    0 (the profile queries' index; blosum62 seed), and the first 8 profiles
+    of it_profile_0 with their generators and rescore profiles."""
+    from mmseqs2_tpu.commands import prefilter_kmer as jpk
+    from mmseqs2_tpu.commands.common import EncodedDB as JaxEncodedDB
+    from mmseqs2_tpu.commands.common import open_seq_db as jax_open_seq_db
+    from mmseqs2_tpu.prefilter.kmer_generator import (
+        ProfileKmerGenerator as JaxProfileKmerGenerator)
+    from mmseqs2_tpu_torch.commands import prefilter_kmer as tpk
+    from mmseqs2_tpu_torch.commands.common import EncodedDB, open_seq_db
+    from mmseqs2_tpu_torch.db.reader import DBReader
+    from mmseqs2_tpu_torch.profile.io import parse_profile
+    seed = get_submat("blosum62.out", 8.0, -0.2)
+    ungapped = get_submat("blosum62.out", 2.0, -0.2)
+    jseed = jax_get_submat("blosum62.out", 8.0, -0.2)
+    jungapped = jax_get_submat("blosum62.out", 2.0, -0.2)
+    alpha = seed.alphabet_size - 1
+    tdb = EncodedDB(open_seq_db(str(TOY / "qdb")), seed)
+    table = tpk.build_index(tdb, seed, 6, 0, True, 0.9, False, True, "")
+    jtable = jpk.build_index(JaxEncodedDB(jax_open_seq_db(str(TOY / "qdb")),
+                                          jseed),
+                             jseed, 6, 0, True, 0.9, False, True, "")
+    for name in ("offsets", "entries_seq", "entries_pos"):
+        assert np.array_equal(getattr(table, name), getattr(jtable, name))
+    thr = tpk.get_kmer_threshold(5.7, 6)
+    gen = KmerGenerator(6, alpha, SubKmerScores(seed.sub_matrix, alpha, 3),
+                        SubKmerScores(seed.sub_matrix, alpha, 2))
+    jgen = JaxKmerGenerator(6, alpha,
+                            JaxSubKmerScores(jseed.sub_matrix, alpha, 3),
+                            JaxSubKmerScores(jseed.sub_matrix, alpha, 2))
+    host = QueryMatcher(table, seed, ungapped, thr, 6, 300, generator=gen)
+    dev = DevicePrefilter(table, seed, ungapped, thr, 6, 300, generator=gen,
+                          host_fallback=host, device="cpu")
+    # the same index as a DevicePrefilter past 2^22 targets takes it: the
+    # flag its target count would set
+    route = DevicePrefilter(table, seed, ungapped, thr, 6, 300,
+                            generator=gen, host_fallback=host, device="cpu")
+    route.device_expansion = True
+    jdev = JaxDevicePrefilter(jtable, jseed, jungapped, thr, 6, 300,
+                              generator=jgen, host_fallback=host)
+    with DBReader(str(TOY / "it_profile_0")) as r:
+        profiles = [parse_profile(r.get_data(r.get_id(k)))
+                    for k in range(0, 160, 20)]
+    gens, rps = zip(*(tpk.profile_query(p, 6, alpha, table.offsets_pat)
+                      for p in profiles))
+    jgens = [JaxProfileKmerGenerator(6, alpha, g.scores, g.idx, g.offsets)
+             for g in gens]
+    return dict(
+        dev=dev, route=route, jdev=jdev, host=host, tdb=tdb,
+        pqueries=[p.query_num.astype(np.int64) for p in profiles],
+        gens=list(gens), rps=list(rps), jgens=jgens)
+
+
+def refuse_host_expansion(monkeypatch):
+    """From here on the packed route and the host posting expansion raise:
+    whatever matches does so by the route past the packed key."""
+    def refuse(*args, **kw):
+        raise AssertionError("took the packed route")
+    monkeypatch.setattr(DevicePrefilter, "_match_pre_async", refuse)
+    monkeypatch.setattr(DevicePrefilter, "_expand_host", refuse)
+
+
+def test_route_past_the_packed_key_sequence_queries(toy, monkeypatch):
+    """match_batch of a DevicePrefilter past 2^22 targets (prepare_query
+    leaves the posting lists unexpanded; the CSR triples expand on the
+    device through posting_expand; the int64-key sort) gives the packed
+    route's hits and the JAX DevicePrefilter's on toy queries, self hits
+    included; the index entries go to the device only with the route's
+    first flush, and the packed route's store holds none."""
+    dev, route = toy["dev"], toy["route"]
+    queries = [toy["tdb"].seq_num(i) for i in range(0, 480, 40)]
+    idents = [i if i % 80 == 0 else -1 for i in range(0, 480, 40)]
+    packed = dev.match_batch(queries, idents)
+    assert dev._d_entries is None and not dev.device_expansion
+    refuse_host_expansion(monkeypatch)
+    prepared = [route.prepare_query(q) for q in queries]
+    assert all(p[5] is None and p[6] is None for p in prepared)
+    got = route.match_batch(queries, idents)
+    assert route._d_entries is not None
+    assert route.match_batch(queries, idents, prepared=prepared) == got
+    theirs = toy["jdev"].match_batch(queries, idents)
+    assert got == packed == theirs
+    assert sum(map(len, got)) > len(queries)
+
+
+def test_route_past_the_packed_key_profile_queries(toy, monkeypatch):
+    """The route with it_profile_0's profile queries (the profile form of
+    the rescore) against the packed route and the JAX DevicePrefilter."""
+    dev, route, q = toy["dev"], toy["route"], toy["pqueries"]
+    idents = [-1] * len(q)
+    packed = dev.match_batch(q, idents, toy["rps"], toy["gens"])
+    refuse_host_expansion(monkeypatch)
+    got = route.match_batch(q, idents, toy["rps"], toy["gens"])
+    theirs = toy["jdev"].match_batch(q, idents, toy["rps"], toy["jgens"])
+    assert got == packed == theirs
+    assert sum(map(len, got)) > len(q)
+
+
+def test_route_splits_a_batch_over_the_memory_limit(toy, monkeypatch):
+    """Past H_CAP_MAX the route halves the batch (each half by the route)
+    and hands a single query to the host oracle, as the packed route."""
+    dev, route = toy["dev"], toy["route"]
+    queries = [toy["tdb"].seq_num(i) for i in range(5, 85, 20)]
+    want = dev.match_batch(queries, [-1] * 4)
+    vols = [int(route.prepare_query(q)[1].sum()) for q in queries]
+    refuse_host_expansion(monkeypatch)
+    monkeypatch.setattr(DevicePrefilter, "H_CAP_MAX", max(vols) * 2)
+    assert route.match_batch(queries, [-1] * 4) == want
+    monkeypatch.setattr(DevicePrefilter, "H_CAP_MAX", min(vols) - 1)
+    before = route.host_oracle_queries
+    assert route.match_batch(queries, [-1] * 4) == want
+    assert route.host_oracle_queries == before + 4
+
+
+@pytest.mark.parametrize("kind", ["sequence", "profile"])
+def test_prefilter_command_past_2_22_targets(kind, tmp_path, monkeypatch):
+    """The `prefilter` command through _run_device with the target-id
+    width of a DB past 2^22 targets (_tb 24, as 2^23 targets give): every
+    flush goes by the route past the packed key (prepare_query leaves the
+    lists unexpanded, match_batch_async sends the flush to
+    _match_expand_async, the flush budget counts the triples' expansions),
+    and the entries equal the golden's: the first 8 toy queries with
+    their self hits against pref, it_profile_0's profiles at -s 5.7
+    against it_pref_tmp_1."""
+    from mmseqs2_tpu_torch import cli
+    from mmseqs2_tpu_torch.db.reader import DBReader
+    from mmseqs2_tpu_torch.db.writer import DBWriter
+    from mmseqs2_tpu_torch.device import ENV
+    monkeypatch.setenv(ENV, "cpu")
+    monkeypatch.setattr(DevicePrefilter, "_tb", lambda self: 24)
+    refuse_host_expansion(monkeypatch)
+    if kind == "sequence":
+        src, keys, golden = TOY / "qdb", list(range(8)), TOY / "pref"
+        flags, suffixes = ["--add-self-matches"], ("", "_h")
+    else:
+        src, keys = TOY / "it_profile_0", list(range(0, 200, 20))
+        golden, flags, suffixes = TOY / "it_pref_tmp_1", ["-s", "5.7"], ("",)
+    q = str(tmp_path / "q")
+    for suffix in suffixes:
+        with DBReader(str(src) + suffix) as r, \
+                DBWriter(q + suffix, r.base_type, r.extended_type) as w:
+            for k in keys:
+                w.write(k, r.get_data(r.get_id(k)))
+    out = tmp_path / "pref"
+    assert cli.main(["prefilter", q, str(TOY / "qdb"), str(out),
+                     *flags]) == 0
+    with DBReader(str(out)) as r, DBReader(str(golden)) as g:
+        assert sorted(r.get_db_key(i) for i in range(r.size)) == keys
+        assert [k for k in keys
+                if r.get_data(r.get_id(k)) != g.get_data(g.get_id(k))] == []
+
+
+def test_route_is_taken_past_2_22_targets():
+    """A target set past 2^22 sequences takes the route: its full flush's
+    packed key would not fit i32. The store is a CatSeqs-like layout of
+    empty sequences; nothing but the flag is asked of it."""
+
+    class Seqs:
+        def __init__(self, n):
+            self.lens = np.zeros(n, np.int32)
+            self.cat = np.zeros(0, np.uint8)
+
+        def __len__(self):
+            return len(self.lens)
+
+    class Table:
+        def __init__(self, n):
+            self.masked_seqs = Seqs(n)
+
+    seed = get_submat("blosum62.out", 8.0, -0.2)
+    for n, want in ((1 << 22, False), ((1 << 22) + 1, True)):
+        dev = DevicePrefilter(Table(n), seed, seed, 100, 6, 300,
+                              device="cpu")
+        assert dev.device_expansion is want and dev._d_entries is None

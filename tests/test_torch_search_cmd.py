@@ -277,9 +277,6 @@ UNPORTED = {
     "prefilter nucleotide": ["prefilter", NUCL, NUCL, "{out}"],
     "prefilter --taxon-list": ["prefilter", QDB, QDB, "{out}",
                                "--taxon-list", "9606"],
-    "prefilter --split 2": ["prefilter", QDB, QDB, "{out}", "--split", "2"],
-    "prefilter automatic split": ["prefilter", QDB, QDB, "{out}",
-                                  "--split-memory-limit", "100K"],
     "search nucleotide": ["search", NUCL, NUCL, "{out}", "{tmp}",
                           "--search-type", "3"],
     "search translated": ["search", NUCL, QDB, "{out}", "{tmp}"],
@@ -325,7 +322,7 @@ def test_unported_branch_exits_1(tmp_path):
     env[ENV] = "cpu"
     r = subprocess.run(
         [sys.executable, "-m", "mmseqs2_tpu_torch", "prefilter", str(QDB),
-         str(QDB), str(tmp_path / "pref"), "--split", "3"],
+         str(QDB), str(tmp_path / "pref"), "--taxon-list", "9606"],
         env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 1
     assert "not yet ported (see ROADMAP.md)" in r.stderr
