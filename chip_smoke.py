@@ -72,8 +72,14 @@ caught. Phases, each printing lines before the last:
      against profile targets (tprofile/refout) and `search
      --exhaustive-search` (sliced/refout, refout2); `search
      --num-iterations 2` of the toy's first 25 queries against its first
-     250 equal on the card and the CPU, byte for byte. The CPU sides of
-     phases 6, 7, 8 (started with phase 3) and 9 run in subprocesses
+     250 equal on the card and the CPU, byte for byte. Nucleotide DBs
+     (tests/golden/nucl): `search ndb ndb --search-type 3` (blastn: the
+     host prefilter of exact 15-mers and the banded ksw2 aligner) equals
+     `naln` and `--search-type 2` (translated: extractorfs, the prefilter
+     and align over the ORFs on the card, offsetalignment) equals `taln`,
+     entry by entry; the translated search launches diag_rescore and
+     sw_multi, the nucleotide one neither. The CPU sides of
+     phases 6, 7, 8 (started with phase 3), 9 and 11 run in subprocesses
      during this phase, which is correctness only: none of its seconds is
      a metric, and the phase ends by waiting for them, so that nothing
      measured after it runs beside them
@@ -94,15 +100,15 @@ caught. Phases, each printing lines before the last:
      host-oracle route (and no posting_expand launch: up to 2^22 targets
      the postings expand on the host), the hits, sw_multi's launches by form and its
      computed cells against those needed; the first 32 queries' lines equal
-     phase 4's run of them with the CPU requested; then the prefilter step
-     once more under
-     torch.profiler, with diag_rescore's launches and device time from the
-     trace and, recorded in that run, their slots, valid counts and the
-     distribution of their window lengths. Beside the main path, not in
-     its place: `createindex -s 5.7` of the target DB and easy-search
-     against it, as bench.py does (the index build's seconds beside the
-     wall, hit lines equal to the run without the index), and its
-     prefilter step once more under torch.profiler. (Phase 4's prefilter
+     phase 4's run of them with the CPU requested. Beside the main path,
+     not in its place: `createindex -s 5.7` of the target DB and
+     easy-search against it, as bench.py does (the index build's seconds
+     beside the wall, hit lines equal to the run without the index), then
+     its prefilter step once more under torch.profiler (the main path's
+     flushes: the same queries and index), with diag_rescore's launches
+     and device time from the trace and, recorded in that run, their
+     slots, valid counts and the distribution of their window lengths.
+     (Phase 4's prefilter
      runs also show that a flush is dispatched with no synchronisation:
      PyTorch's sync debug mode raises on one);
   7. real size, the exhaustive prefilter: `ungappedprefilter` of the 1,000
@@ -129,8 +135,8 @@ caught. Phases, each printing lines before the last:
      align2clust's gapped calls with their sw_multi launches (by form) and
      read-backs, and each round's prefilter route (card or host), index
      seconds and launches; each output a full assignment; then both
-     commands on a check set made from its own generator, 2,000 sequences
-     of the same recipe (a cut for time) and 200 planted near-duplicates
+     commands on a check set made from its own generator, 1,000 sequences
+     of the same recipe (a cut for time) and 100 planted near-duplicates
      of them (2% substitutions, two thirds of them with one indel of 1-3
      letters, so that align2clust accepts pairs through its gapped
      fallback and through its ungapped rescore, both checked), whose
@@ -138,8 +144,10 @@ caught. Phases, each printing lines before the last:
      those of the CPU subprocess started with phase 3; the card's
      easy-cluster of the check set runs under torch.profiler;
   9. the iterative profile search at real size: `search --num-iterations
-     3` of the first 100 of phase 5's 1,000 queries (a cut for time: the
-     index builds, three of them, do not shrink with the queries) against
+     2` of the first 100 of phase 5's 1,000 queries (cuts for time: the
+     index builds, one an iteration, do not shrink with the queries; the
+     third iteration, a second profile round, runs in phase 4's toy
+     goldens) against
      its 50,000 targets (phase 6's
      target DB, no prebuilt index), every kernel's count set to 0 just
      before and read just after: wall, queries/s, and per iteration the
@@ -161,9 +169,20 @@ caught. Phases, each printing lines before the last:
      prefilter's: the wall, each split's index build and candidate stage,
      stage-0, the merge, the bytes spilled, posting_expand's and
      diag_rescore's launches;
+ 11. translated search at real size (blastx-style): `easy-search` of the
+     first 500 of phase 5's protein queries back-translated into DNA
+     (synonymous codons drawn from the seed, a stop codon after each, random
+     flanks of 0-150 nt, every second query reverse-complemented) against
+     phase 6's target DB with its `createindex -s 5.7` index in place
+     (nothing rebuilt), every kernel's count set to 0 just before and read
+     just after: wall, DNA queries/s, the ORFs extracted, the seconds of
+     extractorfs, prefilter, align, offsetalignment and convertalis, the
+     launches of diag_rescore and sw_multi and their device time; the share
+     of the queries whose best target is phase 6's for the protein query;
+     the first 32 queries' lines equal to phase 4's CPU side's, by name;
 then one JSON line listing every kernel (nine entry points), with its
-launches on the clustering and iterative paths beside those of the path
-that launches it;
+launches on the clustering, iterative and translated paths beside those of
+the path that launches it;
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA card or outside a checkout of the repository.
 """
@@ -1427,6 +1446,42 @@ def phase_golden_search():
         raise AssertionError("easy-search differs from golden_self.m8")
 
 
+def phase_golden_nucl():
+    """The nucleotide goldens (tests/golden/nucl, 61 synthetic DNA
+    sequences): `search ndb ndb --search-type 3` (blastn: extractframes,
+    splitsequence, the host prefilter of exact 15-mers, the banded ksw2
+    aligner, offsetalignment) equal to `naln`, and `--search-type 2`
+    (translated: extractorfs, then the protein prefilter and align over the
+    ORFs on the card, offsetalignment) equal to `taln`, entry by entry; the
+    translated search must launch diag_rescore and sw_multi, the nucleotide
+    one neither. Returns the translated run's launches."""
+    from mmseqs2_tpu_torch.ops import rescore, sw
+    nucl = GOLDEN.parent / "nucl"
+    launches = {}
+    for search_type, gold in ((3, "naln"), (2, "taln")):
+        sw.sw_multi.launches = rescore.diag_rescore.launches = 0
+        out = WORK / f"golden_{gold}"
+        t0 = time.perf_counter()
+        run_cli(["search", nucl / "ndb", nucl / "ndb", out,
+                 WORK / f"golden_{gold}_tmp", "--search-type", search_type])
+        wall = time.perf_counter() - t0
+        launches[gold] = dict(sw_multi=sw.sw_multi.launches,
+                              diag_rescore=rescore.diag_rescore.launches)
+        got, want = entries(out), entries(nucl / gold)
+        bad = [k for k in want if got.get(k) != want[k]]
+        log(f"golden search --search-type {search_type} ({gold}): "
+            f"{len(want)} queries, {len(bad)} differ, launches "
+            f"{launches[gold]}, {wall:.2f} s")
+        if bad or len(got) != len(want):
+            raise AssertionError(f"golden parity ({gold}) fails for queries "
+                                 f"{bad[:10]}")
+    if min(launches["taln"].values()) <= 0 or any(launches["naln"].values()):
+        raise AssertionError(f"the translated search must launch both "
+                             f"kernels and the nucleotide search neither: "
+                             f"{launches}")
+    return launches["taln"]
+
+
 def sub_db(src, n, dst):
     """The first n entries of a sequence DB (and of its header DB)."""
     from mmseqs2_tpu_torch.db.reader import DBReader
@@ -1881,6 +1936,41 @@ def make_scale_data(rng, n_targets, n_queries):
     return qfam, tfam
 
 
+# the standard genetic code (NCBI table 1), codons in TCAG order
+STANDARD_CODE = ("FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEG"
+                 "GGG")
+CODONS = [a + b + c for a in "TCAG" for b in "TCAG" for c in "TCAG"]
+SYNONYMS = {aa: [c for c, x in zip(CODONS, STANDARD_CODE) if x == aa]
+            for aa in set(STANDARD_CODE)}
+DNA_COMPLEMENT = str.maketrans("ACGT", "TGCA")
+# the translated cell's DNA queries come from their own generator, drawn
+# query by query: the first n of any run are the same bytes
+DNA_SEED = SEED + 12
+
+
+def dna_queries(n, path):
+    """The first n of phase 5's protein queries back-translated into DNA
+    (the translated search's queries): each codon drawn among the standard
+    code's synonymous codons, a stop codon after the last, random flanks of
+    0-150 nt on each side, every second query reverse-complemented; names
+    are the protein queries'. Writes the FASTA file `path`."""
+    rng = np.random.default_rng(DNA_SEED)
+    records = (WORK / "queries.fasta").read_text().split(">")[1:n + 1]
+    with open(path, "w") as f:
+        for i, rec in enumerate(records):
+            name, seq = rec.split("\n", 1)
+            prot = seq.replace("\n", "") + "*"
+            codons = [SYNONYMS[aa][int(rng.integers(len(SYNONYMS[aa])))]
+                      for aa in prot]
+            flanks = ["".join("ACGT"[b] for b in rng.integers(
+                0, 4, size=int(rng.integers(0, 151)))) for _ in range(2)]
+            dna = flanks[0] + "".join(codons) + flanks[1]
+            if i % 2:
+                dna = dna[::-1].translate(DNA_COMPLEMENT)
+            f.write(f">{name}\n{dna}\n")
+    return path
+
+
 def name_to_key(db):
     out = {}
     with open(f"{db}.lookup") as f:
@@ -2016,14 +2106,15 @@ def device_spans_s(events):
     return busy / 1e6, by_name
 
 
-def traced(fn):
-    """fn() under torch.profiler (CPU and CUDA activities); returns the
-    profiler and fn's wall seconds, the card synchronised at both ends."""
+def traced(fn, host=True):
+    """fn() under torch.profiler (CPU and CUDA activities; without `host`
+    the card's alone, a smaller trace); returns the profiler and fn's wall
+    seconds, the card synchronised at both ends."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2172,40 +2263,38 @@ def phase_easy_search(check, n_queries=1_000):
     bad = [q for q in first if cpu.get(q) != got.get(q)]
     log(f"easy-search CPU cross-check: first {n_check} queries "
         f"({sum(len(v) for v in cpu.values())} lines), {len(bad)} differ, "
-        f"CPU side {check['cpu_s']['easy-search']:.2f} s (beside phase 4)")
+        f"CPU side {check['cpu_s']['easy-search']:.2f} s with phase 11's "
+        f"(beside phase 4)")
     if bad or not cpu:
         raise AssertionError(f"card and CPU easy-search differ for queries "
                              f"{bad[:10]}")
 
-    # the traced rerun also records each flush's rescore (slots, valid
-    # candidates, window lengths), work that the untraced run whose wall is
-    # the metric does not do
+    # beside the main path, not in its place: the same search against a
+    # target DB indexed beforehand; then its prefilter step once more,
+    # traced (the flushes are the main path's: the same index and queries;
+    # a traced rerun without the index would build it once more, a cut for
+    # time), which also records each flush's rescore (slots, valid
+    # candidates, window lengths), work that the untraced runs whose walls
+    # are the metrics do not do
+    indexed = phase_index_search(res, n_queries)
     prefilter_kmer.reset_stats()
     rescore.diag_rescore.launches = 0
     prefilter_kmer.RECORD_RESCORE = True
     try:
         trace = phase_trace(
-            "prefilter", ["prefilter", tmp / "query", tmp / "target",
-                          WORK / "pref_traced", "-s", "5.7"],
-            WORK / "pref_traced", tmp / "search_tmp" / "pref_0",
-            steps["prefilter"], focus="rescore_kernel")
+            "prefilter against the prebuilt index",
+            ["prefilter", tmp / "query", WORK / "tdb",
+             WORK / "pref_idx_traced", "-s", "5.7"],
+            WORK / "pref_idx_traced", tmp / "search_tmp" / "pref_0",
+            indexed["prefilter_s"], focus="rescore_kernel")
     finally:
         prefilter_kmer.RECORD_RESCORE = False
     trace["diag_rescore"] = rescore_record(
         prefilter_kmer.STATS["rescore"], rescore.diag_rescore.launches,
         trace["focus"])
     log("rescore-record " + json.dumps(trace["diag_rescore"]))
-
-    # beside the main path, not in its place: the same search against a
-    # target DB indexed beforehand, and its prefilter step traced
-    indexed = phase_index_search(res, n_queries)
-    indexed["trace"] = phase_trace(
-        "prefilter against the prebuilt index",
-        ["prefilter", tmp / "query", WORK / "tdb", WORK / "pref_idx_traced",
-         "-s", "5.7"],
-        WORK / "pref_idx_traced", tmp / "search_tmp" / "pref_0",
-        indexed["prefilter_s"], focus="rescore_kernel")
-    return res, trace, indexed
+    indexed["trace"] = trace
+    return res, trace
 
 
 def phase_index_search(easy, n_queries):
@@ -2848,7 +2937,7 @@ def near_duplicates(seqs, n, rng):
 
 
 @contextlib.contextmanager
-def cluster_cpu_check(n_check=2_000, n_dup=200):
+def cluster_cpu_check(n_check=1_000, n_dup=100):
     """Phase 8's check set and its CPU side. The set, from its own
     generator: n_check sequences of phase 5's recipe (as many families as
     the 50,000 targets have, so that it is composed like their first
@@ -2925,14 +3014,18 @@ def cli_cpu_side(label, steps, out):
 
 
 @contextlib.contextmanager
-def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=3,
+def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=2,
                          n_exhaustive=32, n_exhaustive_targets=500,
                          n_gapped=8, n_targets=N_TARGETS, n_queries=1_000):
-    """The CPU sides of phases 6, 7 and 9: phase 5's FASTA files made now,
-    from a copy of the generator as phase 5 will find it (phase 5 makes the
-    same bytes again), and three subprocesses that run with the CPU
-    requested while the block runs (phase 4: correctness only):
-    `easy-search` of the first n_easy queries against all the targets;
+    """The CPU sides of phases 6, 7, 9 and 11: phase 5's FASTA files made
+    now, from a copy of the generator as phase 5 will find it (phase 5
+    makes the same bytes again), and three subprocesses that run with the
+    CPU requested while the block runs (phase 4: correctness only):
+    `easy-search` of the first n_easy queries against all the targets, then
+    the translated `easy-search` of the first n_easy DNA queries
+    (dna_queries) against them, both against one `createindex -s 5.7` of
+    the targets (the card's phase 6 builds its index inside its prefilter;
+    phase 6 shows both routes equal);
     `search --num-iterations` of the first n_iterative; and, on createdb's
     DBs of the two files (phase 5's bytes), `ungappedprefilter` of the
     first n_exhaustive queries against the first n_exhaustive_targets
@@ -2950,6 +3043,7 @@ def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=3,
 
     w, tf = WORK, WORK / "targets.fasta"
     out = dict(easy_search_m8=w / "es_cpu.m8", n_easy=n_easy,
+               translated_m8=w / "tr_cpu.m8",
                res=w / "it_cpu_res", qdb=w / "it_cpu_q",
                n_check=n_iterative, iterations=iterations,
                x_qdb=w / "x_cpu_q", x_tdb=w / "x_cpu_t",
@@ -2957,8 +3051,14 @@ def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=3,
                gpref=w / "gpref_sub_cpu", n_exhaustive=n_exhaustive,
                n_exhaustive_targets=n_exhaustive_targets, n_gapped=n_gapped)
     steps = {
-        "easy-search": [["easy-search", first(n_easy), tf,
-                         out["easy_search_m8"], w / "es_cpu_tmp"]],
+        "easy-search": [
+            ["createdb", tf, w / "es_cpu_t"],
+            ["createindex", w / "es_cpu_t", w / "es_cpu_ci", "-s", "5.7"],
+            ["easy-search", first(n_easy), w / "es_cpu_t",
+             out["easy_search_m8"], w / "es_cpu_tmp"],
+            ["easy-search", dna_queries(
+                n_easy, w / f"dna_queries_{n_easy}.fasta"), w / "es_cpu_t",
+             out["translated_m8"], w / "tr_cpu_tmp"]],
         "iterative search": [
             ["createdb", first(n_iterative), out["qdb"]],
             ["createdb", tf, w / "it_cpu_t"],
@@ -2981,7 +3081,8 @@ def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=3,
         yield out
     out["cpu_s"] = {name: side["cpu_s"] for name, side in sides.items()}
     log(f"real-size CPU sides: easy-search of the first {n_easy} queries "
-        f"x {n_targets} targets in {out['cpu_s']['easy-search']:.2f} s, "
+        f"x {n_targets} targets, then the translated one of their DNA, in "
+        f"{out['cpu_s']['easy-search']:.2f} s, "
         f"search --num-iterations {iterations} of the first {n_iterative} "
         f"in {out['cpu_s']['iterative search']:.2f} s, ungappedprefilter of "
         f"the first {n_exhaustive} x {n_exhaustive_targets} and "
@@ -3001,7 +3102,7 @@ def iteration_steps(steps, it, last, result="it_res"):
     return {role: by_out.get(name) for role, name in names.items()}
 
 
-def phase_iterative(check, n_queries=100, iterations=3):
+def phase_iterative(check, n_queries=100, iterations=2):
     """blastpgp at real size: `search --num-iterations` of the first
     n_queries records of phase 5's queries against its targets (phase 6's
     createdb of them: no prebuilt index), every kernel's count set to 0
@@ -3171,6 +3272,146 @@ def phase_clustering(check, n_linclust=25_000, n_cluster=3_000):
         cross, cpu_both_s=check["cpu_s"]), trace=cross["cluster"]["trace"])
 
 
+def first_lines(path):
+    """The first m8 line of each query in file order (its best hit), by
+    query name."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            out.setdefault(line.split("\t", 1)[0], line)
+    return out
+
+
+def phase_translated(check, n_queries=500, n_traced=512):
+    """Translated search at real size (blastx-style, cell
+    translated_es_500x50k): `easy-search` of the first n_queries of phase
+    5's protein queries as DNA (dna_queries) against phase 6's target DB
+    with its `createindex -s 5.7` index in place (nothing is rebuilt):
+    extractorfs, the protein prefilter and align over the ORFs on the card,
+    offsetalignment, convertalis; every kernel's count set to 0 just before
+    and read just after. Prints the wall, queries/s (DNA queries), the ORFs
+    extracted, the seconds of each step, the launches of diag_rescore and
+    sw_multi and their device time (the aligner's CUDA events for sw_multi;
+    diag_rescore's a launch from a traced rerun of the prefilter on the
+    first n_traced ORFs, times its launches), and the
+    share of the queries whose best target is phase 6's for the same
+    protein query. The first check['n_easy'] queries' lines must equal the
+    CPU side's (phase 4), by query name."""
+    import torch
+    from mmseqs2_tpu_torch.align import aligner
+    from mmseqs2_tpu_torch.commands import prefilter_kmer
+    from mmseqs2_tpu_torch.ops import sw
+    from mmseqs2_tpu_torch.workflow import engine
+    fasta = dna_queries(n_queries, WORK / "dna_queries.fasta")
+    tdb, tmp, out = WORK / "tdb", WORK / "tr_tmp", WORK / "tr.m8"
+    if not os.path.exists(f"{tdb}.idx"):
+        raise AssertionError("phase 6's createindex index is missing")
+    aligner.reset_stats()
+    prefilter_kmer.reset_stats()
+    engine.STEP_SECONDS.clear()
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    sw.sw_multi.form_launches = dict.fromkeys(sw.sw_multi.form_launches, 0)
+    build_index = prefilter_kmer.build_index
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("the translated search rebuilt the target "
+                             "index instead of loading phase 6's")
+    prefilter_kmer.build_index = no_build
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        run_cli(["easy-search", fasta, tdb, out, tmp,
+                 "--remove-tmp-files", 0])
+        torch.cuda.synchronize()
+    finally:
+        prefilter_kmer.build_index = build_index
+    wall = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    for name in ("sw_multi", "diag_rescore"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the translated easy-search launched no "
+                                 f"{name} kernel")
+    steps = dict(engine.STEP_SECONDS)
+    pst, ast = dict(prefilter_kmer.STATS), dict(aligner.STATS)
+    orfs = entries(tmp / "search_tmp" / "q_orfs_aa")
+    got = m8_by_query(out)
+    n_hits = sum(len(v) for v in got.values())
+    res = dict(
+        card=card_line(), queries=n_queries, targets=N_TARGETS, wall_s=wall,
+        queries_per_s=n_queries / wall, orfs=len(orfs),
+        orf_residues=sum(len(v) - 1 for v in orfs.values()), hits=n_hits,
+        queries_with_hits=len(got),
+        step_s={k: steps[k] for k in (
+            "createdb", "extractorfs", "prefilter", "align",
+            "offsetalignment")},
+        convertalis_s=wall - steps["createdb"] - steps["search"],
+        launches=dict(diag_rescore=launches["diag_rescore"],
+                      sw_multi=launches["sw_multi"],
+                      sw_multi_by_form=dict(sw.sw_multi.form_launches),
+                      others={n: v for n, v in launches.items()
+                              if n not in ("diag_rescore", "sw_multi")}),
+        prefilter=dict(index_load_s=pst["index_s"],
+                       stage0_worker_sum_s=pst["prep_s"],
+                       dispatch_s=pst["dispatch_s"], wait_s=pst["wait_s"],
+                       flushes=pst["flushes"],
+                       host_oracle_queries=pst["host_oracle_queries"],
+                       prefilter_hits=pst["hits"]),
+        align=dict(pairs=ast["pairs"], scan_host_s=ast["scan_s"],
+                   sw_multi_device_s=ast["kernel_ms"] / 1e3,
+                   backtrace_s=ast["backtrace_s"],
+                   readbacks=ast["readbacks"]))
+    if n_hits == 0:
+        raise AssertionError("the translated easy-search wrote no results")
+
+    # the best target of each DNA query against phase 6's best target for
+    # the same protein query (printed, not a gate: the ORF's flanks and
+    # the other frames' ORFs may rank a target of the same family first)
+    best, best_prot = first_lines(out), first_lines(WORK / "es.m8")
+    names = [r.split(None, 1)[0] for r in fasta.read_text().split(">")[1:]]
+    same = sum(1 for q in names if q in best and q in best_prot
+               and best[q].split("\t")[1] == best_prot[q].split("\t")[1])
+    res["best_target_as_protein_search"] = same / n_queries
+
+    # the prefilter step once more on the first n_traced ORFs, traced:
+    # diag_rescore's device time a launch (a cut for time: the whole step
+    # again would cost its wall once more)
+    orf_db = tmp / "search_tmp" / "q_orfs_aa"
+    sub = sub_db(orf_db, n_traced, WORK / "tr_orfs_sub")
+    prefilter_kmer.reset_stats()
+    prof, traced_wall = traced(lambda: run_cli(
+        ["prefilter", sub, tdb, WORK / "tr_pref_traced", "-s", "5.7"]),
+        host=False)
+    path = export_trace(prof, "translated prefilter")
+    full = entries(tmp / "search_tmp" / "pref")
+    part = entries(WORK / "tr_pref_traced")
+    if part != {k: full[k] for k in entries(sub)}:
+        raise AssertionError("the traced translated prefilter gave other "
+                             "results")
+    trace = trace_summary(path, f"translated prefilter, first {n_traced} "
+                          f"ORFs", traced_wall, focus="rescore_kernel")
+    n_traced_launches = trace["focus"]["count"]
+    res["diag_rescore_trace"] = dict(
+        orfs=len(part), launches=n_traced_launches,
+        ms_per_launch=1e3 * trace["focus"]["s"] / max(n_traced_launches, 1),
+        busy_share=trace["busy_share"], traced_wall_s=traced_wall)
+    res["diag_rescore_device_s_estimate"] = (
+        res["diag_rescore_trace"]["ms_per_launch"] / 1e3
+        * launches["diag_rescore"])
+    log("translated-search " + json.dumps(res))
+
+    n_check = check["n_easy"]
+    cpu = m8_by_query(check["translated_m8"])
+    bad = [q for q in names[:n_check] if cpu.get(q) != got.get(q)]
+    log(f"translated search CPU cross-check: first {n_check} queries "
+        f"({sum(len(v) for v in cpu.values())} lines), {len(bad)} differ")
+    if bad or not cpu:
+        raise AssertionError(f"card and CPU translated search differ for "
+                             f"queries {bad[:10]}")
+    return res
+
+
 def main():
     try:
         import torch
@@ -3235,6 +3476,7 @@ def main():
         srv_launches = phase_golden_exhaustive(prof)
         phase_golden_cluster()
         phase_golden_profile()
+        nucl_launches = phase_golden_nucl()
     phase_done(4)
 
     # 5. the align stage alone at real size (its traced rerun went when
@@ -3243,7 +3485,7 @@ def main():
     phase_done(5)
 
     # 6. the main path at real size: easy-search, then a traced prefilter
-    easy, easy_trace, _ = phase_easy_search(rcheck)
+    easy, easy_trace = phase_easy_search(rcheck)
     phase_done(6)
 
     # 7. the exhaustive prefilter at real size
@@ -3262,6 +3504,11 @@ def main():
     big = phase_large_db(easy)
     phase_done(10)
 
+    # 11. translated search at real size: DNA queries against phase 6's
+    # indexed target DB
+    tr = phase_translated(rcheck)
+    phase_done(11)
+
     # kernels line; launches are those of the run of the path that
     # launches the kernel: easy-search, ungappedprefilter, the server's
     # process under ungappedprefilter --gpu 1 (gapless_score) and under
@@ -3269,8 +3516,9 @@ def main():
     # easy-search's for sw_offset, which has no caller and which phase 3
     # launches; and beside them each kernel's launches on the clustering
     # path (phase 8's real-size easy-linclust and easy-cluster runs) and on
-    # the iterative search's (phase 9); diag_rescore_profile's are phase
-    # 9's, the path that launches it
+    # the iterative search's (phase 9) and, for sw_multi and diag_rescore,
+    # the translated search's (phase 11, and phase 4's golden run);
+    # diag_rescore_profile's are phase 9's, the path that launches it
     clu_launches = {name: dict(
         easy_linclust=clu["linclust"]["launches"][name],
         easy_cluster=clu["cluster"]["launches"][name])
@@ -3299,7 +3547,9 @@ def main():
         equal=all(r["equal"] for _, r in rows),
         at=rep["case"], launches_clustering=clu_launches["sw_multi"],
         launches_iterative=it["launches"]["sw_multi"],
-        launches_iterative_by_form=it["launches"]["sw_multi_by_form"]),
+        launches_iterative_by_form=it["launches"]["sw_multi_by_form"],
+        launches_translated=tr["launches"]["sw_multi"],
+        launches_translated_golden=nucl_launches["sw_multi"]),
         dict(
         name="diag_rescore", route="cuda",
         source="mmseqs2_tpu_torch/csrc/rescore.cu",
@@ -3317,7 +3567,9 @@ def main():
         path_trace_ms_per_launch=easy_trace["diag_rescore"][
             "trace_ms_per_launch"],
         launches_clustering=clu_launches["diag_rescore"],
-        launches_iterative=it["launches"]["diag_rescore"])]
+        launches_iterative=it["launches"]["diag_rescore"],
+        launches_translated=tr["launches"]["diag_rescore"],
+        launches_translated_golden=nucl_launches["diag_rescore"])]
     prep = next(r for c, r in prows if c["n_cand"] == 1 << 17
                 and "slots" not in c and not c["counted"])
     pflush = next(r for c, r in prows if c["n_cand"] == 1 << 17

@@ -5,8 +5,10 @@ src/alignment/Alignment.cpp (main loop :248-460, acceptance :389-397, mode
 escalation :28-90) + Matcher::getSWResult. The SW score/endpoint passes run
 on the device per query batch; the banded backtrace runs host-side for
 accepted candidates only; a profile query (DBTYPE_HMM_PROFILE) is aligned
-with its PSSM columns (Aligner.init_profile_query). Nucleotide queries and
-`lcaalign` are not yet ported (see ROADMAP.md).
+with its PSSM columns (Aligner.init_profile_query). A nucleotide query is
+aligned on the host by the banded ksw2 aligner (align/nucl_aligner.py), as
+in the JAX package and the reference. `lcaalign` is not yet ported (see
+ROADMAP.md).
 """
 
 import numpy as np
@@ -14,6 +16,7 @@ import numpy as np
 from ..align import util as autil
 from ..align.aligner import (Aligner, SCORE_COV, SCORE_COV_SEQID, SCORE_ONLY,
                              sort_results)
+from ..align.nucl_aligner import NuclAligner
 from ..db import dbtype as dbt
 from ..db.reader import DBReader
 from ..db.writer import DBWriter
@@ -27,6 +30,7 @@ ALIGNMENT_MODE_SCORE_ONLY = 1
 ALIGNMENT_MODE_SCORE_COV = 2
 ALIGNMENT_MODE_SCORE_COV_SEQID = 3
 ALIGNMENT_MODE_UNGAPPED = 4
+INT_MAX = 2147483647
 
 
 def init_sw_mode(alignment_mode: int, cov_thr: float, seq_id_thr: float) -> int:
@@ -92,8 +96,7 @@ def align(par, command):
     if par.wrapped_scoring and not query_is_nucl:
         log.die("Wrapped scoring is only supported for nucleotides")
     if query_is_nucl:
-        raise NotImplementedError(
-            "nucleotide alignment is not yet ported (see ROADMAP.md)")
+        return _align_nucl(par, qreader, treader, same_db)
     submat = get_sub_mat(par, score_bias=par.score_bias)
     query_is_profile = qreader.base_type == dbt.DBTYPE_HMM_PROFILE
     qdb = None if query_is_profile else EncodedDB(qreader, submat)
@@ -294,4 +297,117 @@ def align(par, command):
     writer.close()
     log.info(f"{aln_num} alignments calculated, {total_passed} sequence pairs "
              f"passed the thresholds")
+    return 0
+
+
+def _align_nucl(par, qreader, treader, same_db):
+    """Nucleotide gapped alignment: ungapped diagonal seed + ksw2 Z-drop
+    extension per prefilter hit (Matcher::getSWResult nucleotide branch;
+    alignment mode is always SCORE_COV_SEQID)."""
+    qdb_path, tdb_path, pref_path, out_path = par.filenames[:4]
+    submat = get_sub_mat(par, nucl=True, bit_factor=1.0,
+                         score_bias=par.score_bias)
+    qdb = EncodedDB(qreader, submat)
+    tdb = qdb if same_db else EncodedDB(treader, submat)
+    prefdb = DBReader(pref_path)
+    is_rev_pref = prefdb.base_type == dbt.DBTYPE_PREFILTER_REV_RES
+    wrapped = bool(par.wrapped_scoring)
+    if wrapped and par.realign:
+        log.die("Alternative alignments do not support wrapped scoring")
+
+    evaluer = EvalueComputation(treader.total_residues(), submat,
+                                par.gap_open.nucl, par.gap_extend.nucl)
+    aligner = NuclAligner(submat, par.gap_open.nucl, par.gap_extend.nucl,
+                          par.zdrop, evaluer)
+
+    writer = DBWriter(out_path, dbt.DBTYPE_ALIGNMENT_RES)
+    total_passed = 0
+    aln_num = 0
+    for pid in range(prefdb.size):
+        query_key = prefdb.get_db_key(pid)
+        data = prefdb.get_data(pid)
+        lines = []
+        if data:
+            hit_keys, hit_scores, hit_diags = parse_prefilter_entry(data)
+            qid = qreader.get_id(query_key)
+            q_num = qdb.seq_num(qid)
+            q_len = qdb.seq_len(qid)
+            if wrapped:
+                # double the query for circular end-start scoring
+                # (Alignment.cpp:332-338)
+                aligner.init_query(np.concatenate([q_num, q_num]))
+            else:
+                aligner.init_query(q_num)
+
+            # batch the ksw2 extensions across the query's candidates when
+            # there is no early-exit contract to honor (the defaults; the
+            # reused-buffer staleness depends on the executed sequence, so
+            # with --max-accept/--max-rejected the per-pair path is kept)
+            batch_ok = (par.max_accept >= INT_MAX
+                        and par.max_rejected >= INT_MAX)
+            pre = []
+            for key, score_in, diag in zip(hit_keys, hit_scores,
+                                           hit_diags):
+                tid = treader.get_id(key)
+                if tid < 0:
+                    log.die(f"Sequence {key} required by the prefilter "
+                            f"result is missing from the target database")
+                pre.append((key, score_in, diag, tid, tdb.seq_len(tid)))
+            batch_res = None
+            if batch_ok:
+                cand = [p for p in pre
+                        if autil.can_be_covered(par.cov_thr, par.cov_mode,
+                                                float(q_len),
+                                                float(p[4]))]
+                rlist = aligner.align_pairs(
+                    [tdb.seq_num(p[3]) for p in cand],
+                    [p[2] for p in cand],
+                    [is_rev_pref and p[1] < 0 for p in cand],
+                    wrapped=wrapped)
+                batch_res = {p[0]: r for p, r in zip(cand, rlist)}
+
+            accepted = []
+            passed = 0
+            rejected = 0
+            for key, score_in, diag, tid, t_len in pre:
+                if passed >= par.max_accept or rejected >= par.max_rejected:
+                    break
+                if not autil.can_be_covered(par.cov_thr, par.cov_mode,
+                                            float(q_len), float(t_len)):
+                    rejected += 1
+                    continue
+                # a hit is reversed iff its prefilter score is negative
+                # in a PREFILTER_REV_RES DB (rescorediagonal.cpp:200-205)
+                if batch_res is not None:
+                    res = batch_res[key]
+                else:
+                    res = aligner.align(tdb.seq_num(tid), diag,
+                                        is_rev_pref and score_in < 0,
+                                        wrapped=wrapped)
+                res.db_key = key
+                aln_num += 1
+                res.seq_id = float(autil.compute_seq_id(
+                    par.seq_id_mode, res.aa_ids, q_len, t_len,
+                    len(res.backtrace) if res.backtrace
+                    else res.aln_length))
+                is_identity = (same_db and key == query_key) or \
+                    (par.include_identity and key == query_key)
+                if is_identity:
+                    res.qcov, res.dbcov, res.seq_id = 1.0, 1.0, 1.0
+                if check_criteria(res, is_identity, par.evalue,
+                                  par.min_seq_id, par.min_aln_len,
+                                  par.cov_mode, par.cov_thr):
+                    accepted.append(res)
+                    passed += 1
+                    total_passed += 1
+                    rejected = 0
+                else:
+                    rejected += 1
+            if len(accepted) > 1:
+                sort_results(accepted)
+            lines = [r.to_line(par.add_backtrace) for r in accepted]
+        writer.write(query_key, "".join(lines).encode())
+    writer.close()
+    log.info(f"{aln_num} alignments calculated, {total_passed} sequence "
+             f"pairs passed the thresholds")
     return 0

@@ -11,13 +11,13 @@ src/workflow/Linclust.cpp / Cluster.cpp parameter wiring:
     --comp-bias-corr 0 --min-ungapped-score 0 (Cluster.cpp:223-232)
   - auto sensitivity from --min-seq-id (Cluster.cpp:23-32), auto step count
 
-Port of mmseqs2_tpu/commands/cluster_wf.py for protein sequence DBs:
-linclust v1 and v2 (with --clust-hash), cluster v1 (cascaded), v2 and
---single-step-clustering. Not yet ported (see ROADMAP.md), each raising
-before any step runs: --cluster-reassign (needs swapdb and tsv2db),
---switch-consensus-rep (needs pickconsensusrepfast), nucleotide and profile
-DBs (the nucleotide aligner), and the clusterupdate workflow (diffseqdbs,
-renamedbkeys, prefixid), which the registry does not list.
+Port of mmseqs2_tpu/commands/cluster_wf.py for protein and nucleotide
+sequence DBs: linclust v1 and v2 (with --clust-hash), cluster v1
+(cascaded), v2 and --single-step-clustering. Not yet ported (see
+ROADMAP.md), each raising before any step runs: --cluster-reassign (needs
+swapdb and tsv2db), --switch-consensus-rep (needs pickconsensusrepfast),
+profile DBs, and the clusterupdate workflow (diffseqdbs, renamedbkeys,
+prefixid), which the registry does not list.
 """
 
 import os
@@ -38,8 +38,9 @@ def _refuse_unported(par, seq_db):
     if par.switch_consensus_rep:
         _not_ported("--switch-consensus-rep (pickconsensusrepfast)")
     with DBReader(seq_db) as r:
-        if r.base_type != dbt.DBTYPE_AMINO_ACIDS:
-            _not_ported("clustering of a nucleotide or profile database")
+        if r.base_type not in (dbt.DBTYPE_AMINO_ACIDS,
+                               dbt.DBTYPE_NUCLEOTIDES):
+            _not_ported("clustering of a profile database")
 
 
 def _write_rep_order(clu_path, out_file):
@@ -103,14 +104,20 @@ def linclust(par, command):
     wf.step(pref_f2, "filterdb",
             [pref_f1, pref_f2, "--filter-file", order], par)
 
-    # ungapped substitution rescoring with precision filter (amino acid DBs;
-    # Linclust.cpp:129 skips it for nucleotides and profiles)
-    resc2 = wf.path("pref_rescore2")
-    wf.step(resc2, "rescorediagonal",
-            [input_red, input_red, pref_f2, resc2, "--rescore-mode", 1,
-             "--filter-hits", 1, "--min-seq-id", par.min_seq_id,
-             "-c", par.cov_thr, "--cov-mode", par.cov_mode,
-             "-e", par.evalue], par)
+    # ungapped substitution rescoring with precision filter, amino acid DBs
+    # only: nucleotide DBs align the unfiltered candidate list
+    # (Linclust.cpp:129 "do not filter for nucl, profiles")
+    with DBReader(seq_db) as r:
+        is_aa = r.base_type == dbt.DBTYPE_AMINO_ACIDS
+    if is_aa:
+        resc2 = wf.path("pref_rescore2")
+        wf.step(resc2, "rescorediagonal",
+                [input_red, input_red, pref_f2, resc2, "--rescore-mode", 1,
+                 "--filter-hits", 1, "--min-seq-id", par.min_seq_id,
+                 "-c", par.cov_thr, "--cov-mode", par.cov_mode,
+                 "-e", par.evalue], par)
+    else:
+        resc2 = pref_f2
 
     aln = wf.path("aln")
     wf.step(aln, "align",

@@ -7,9 +7,10 @@ the workflow wrapper (ORF/frame pre-extraction for nucleotide DBs).
 `prefilter` prefers a compatible prebuilt index over rebuilding
 (IndexReader.h preference, Prefiltering.cpp:111-160 meta override).
 
-Port of mmseqs2_tpu/commands/indexdb_cmd.py for protein sequence DBs; the
-index file is the JAX package's format, so either package reads the other's.
-Nucleotide DBs are not yet ported (see ROADMAP.md) and raise.
+Port of mmseqs2_tpu/commands/indexdb_cmd.py for protein and nucleotide
+sequence DBs; the index file is the JAX package's format, so either package
+reads the other's. A nucleotide DB is indexed with the 5-letter matrix at 1
+bit, exact 15-mers by default (Prefiltering.cpp:62-66,207-216).
 """
 
 from ..data.submat import get_submat
@@ -23,14 +24,20 @@ from .prefilter_kmer import (build_index, compute_kmer_size,
 def indexdb(par, command):
     seq_path, out_path = par.filenames[:2]
     reader = open_seq_db(seq_path)
-    if reader.base_type == dbt.DBTYPE_NUCLEOTIDES:
-        raise NotImplementedError(
-            "indexdb of a nucleotide database is not yet ported "
-            "(see ROADMAP.md)")
+    is_nucl = reader.base_type == dbt.DBTYPE_NUCLEOTIDES
 
-    seed = get_submat(par.seed_sub_mat.aa, 8.0, -0.2)
-    kmer_size = par.kmer_size or compute_kmer_size(reader.total_residues())
-    kmer_thr = get_kmer_threshold(par.sensitivity, kmer_size, par.k_score.aa)
+    if is_nucl:
+        seed_name = par.sub_mat.nucl
+        seed = get_submat(seed_name, 1.0, 0.0)
+        kmer_size = par.kmer_size or 15
+        kmer_thr = 0
+    else:
+        seed_name = par.seed_sub_mat.aa
+        seed = get_submat(seed_name, 8.0, -0.2)
+        kmer_size = par.kmer_size or compute_kmer_size(
+            reader.total_residues())
+        kmer_thr = get_kmer_threshold(par.sensitivity, kmer_size,
+                                      par.k_score.aa)
     db = EncodedDB(reader, seed)
     spaced = par.spaced_kmer_mode == 1
     table = build_index(db, seed, kmer_size, kmer_thr,
@@ -38,12 +45,12 @@ def indexdb(par, command):
                         par.mask_lower_case == 1, spaced,
                         par.spaced_kmer_pattern)
     meta = {
-        "seed_mat": par.seed_sub_mat.aa,
+        "seed_mat": seed_name,
         "kmer_thr": int(kmer_thr),
         "sensitivity": float(par.sensitivity),
         "mask": int(par.mask), "mask_prob": float(par.mask_prob),
         "mask_lower": int(par.mask_lower_case),
-        "spaced": int(spaced), "nucl": 0,
+        "spaced": int(spaced), "nucl": int(is_nucl),
         "src_dbtype": int(reader.base_type),
     }
     idx_path = out_path + ".idx"
@@ -54,9 +61,10 @@ def indexdb(par, command):
 
 
 def createindex(par, command):
-    """Workflow wrapper; for protein DBs this is indexdb directly.
-    Reference createindex.sh additionally extracts ORFs/frames for
-    nucleotide DBs before indexing."""
+    """Workflow wrapper; this is indexdb directly. Reference createindex.sh
+    additionally extracts ORFs/frames for nucleotide DBs before indexing;
+    here a nucleotide DB's index is the raw nucleotide index, which the
+    nucleotide prefilter reads (as in the JAX package)."""
     seq_path = par.filenames[0]
     par.filenames = [seq_path, seq_path]
     return indexdb(par, command)

@@ -2,8 +2,8 @@
 
 Port of mmseqs2_tpu/commands/misc_tools.py, of which this slice needs the
 one command that the linclust workflow calls (--clust-hash). Reference
-src/util/clusthash.cpp. Nucleotide DBs (the reverse-complement hash) are not
-yet ported (see ROADMAP.md) and raise.
+src/util/clusthash.cpp. A nucleotide DB hashes each sequence and its
+reverse complement and keeps the smaller hash.
 """
 
 import numpy as np
@@ -11,6 +11,7 @@ import numpy as np
 from ..db import dbtype as dbt
 from ..db.reader import DBReader
 from ..db.writer import DBWriter
+from .nucl_tools import COMPLEMENT
 
 U64 = (1 << 64) - 1
 
@@ -35,17 +36,23 @@ def clusthash(par, command):
     n = r.size
     hashes = np.empty(n, dtype=np.uint64)
     if is_nucl:
-        raise NotImplementedError(
-            "clusthash of a nucleotide database is not yet ported "
-            "(see ROADMAP.md)")
-    red = get_reduced(par.sub_mat.aa, alph)
-    table = red.make_aa2num_table()
-    for i in range(n):
-        num = table[np.frombuffer(r.get_seq(i), np.uint8)]
-        h = 0
-        for v in num:
-            h = (h * 31 + int(v)) & U64
-        hashes[i] = h
+        for i in range(n):
+            seq = r.get_seq(i)
+            h1 = h2 = 0
+            rc = seq[::-1].translate(COMPLEMENT)
+            for b1, b2 in zip(seq, rc):
+                h1 = (h1 * 31 + b1) & U64
+                h2 = (h2 * 31 + b2) & U64
+            hashes[i] = min(h1, h2)
+    else:
+        red = get_reduced(par.sub_mat.aa, alph)
+        table = red.make_aa2num_table()
+        for i in range(n):
+            num = table[np.frombuffer(r.get_seq(i), np.uint8)]
+            h = 0
+            for v in num:
+                h = (h * 31 + int(v)) & U64
+            hashes[i] = h
     order = sorted(range(n), key=lambda i: (int(hashes[i]), i))
     with DBWriter(out, dbt.DBTYPE_ALIGNMENT_RES,
                   compressed=bool(par.compressed)) as w:

@@ -2,8 +2,9 @@
 
 Port of mmseqs2_tpu/commands/prefilter_kmer.py for protein sequence and
 profile queries against a protein sequence target DB held whole on one
-device, and for sequence queries against a profile target DB (on the host
-matcher, as in the JAX package and the reference).
+device, and for sequence queries against a profile target DB or a
+nucleotide target DB (on the host matcher, as in the JAX package and the
+reference).
 
 Reference: src/prefiltering/Prefiltering.cpp: seed matrix VTML80 at 8-bit
 scaling with -0.2 bias, ungapped rescoring matrix at 2-bit (getSubstitutionMatrix
@@ -19,8 +20,9 @@ device path. Target-split mode (--split N, or the split count that
 _auto_split_count derives from --split-memory-limit or the card's memory)
 builds one index per contiguous slice of the targets and merges the
 per-split candidates exactly (_run_device_splits): its output is the
-unsplit run's, byte for byte. Nucleotide DBs and --taxon-list are not yet
-ported (see ROADMAP.md) and raise.
+unsplit run's, byte for byte. Nucleotide queries seed with the 5-letter
+matrix at 1 bit and exact 15-mers (Prefiltering.cpp:62-66,188-192,207-216).
+--taxon-list is not yet ported (see ROADMAP.md) and raises.
 """
 
 import os
@@ -70,6 +72,10 @@ RECORD_RESCORE = False
 # queries a chunk of target-split mode: one chunk's stage-0 and fragments
 # are in host memory at a time
 SPLIT_QCHUNK = 1024
+# the least residues of a group of sequence queries that stage-0 prepares
+# in one pass (DevicePrefilter.prepare_queries): a short query alone spends
+# most of its time in the fixed cost of numpy calls
+GROUP_RESIDUES = 1024
 
 
 def reset_stats():
@@ -224,16 +230,14 @@ def prefilter_kmer(par, command):
 
     qreader = open_seq_db(qdb_path)
     treader = qreader if same_db else open_seq_db(tdb_path)
-    for reader in (qreader, treader):
-        if reader.base_type == dbt.DBTYPE_NUCLEOTIDES:
-            raise NotImplementedError(
-                f"the nucleotide prefilter {NOT_PORTED}")
     query_is_profile = qreader.base_type == dbt.DBTYPE_HMM_PROFILE
     target_is_profile = treader.base_type == dbt.DBTYPE_HMM_PROFILE
+    query_is_nucl = qreader.base_type == dbt.DBTYPE_NUCLEOTIDES
+    target_is_nucl = treader.base_type == dbt.DBTYPE_NUCLEOTIDES
     if par.taxon_list:
         raise NotImplementedError(f"prefilter --taxon-list {NOT_PORTED}")
     n_splits = 0
-    if par.diag_score and not target_is_profile:
+    if par.diag_score and not (target_is_profile or target_is_nucl):
         n_splits = par.split if par.split_mode in (0, 2) else 0
         if n_splits == 0 and par.split_mode in (0, 2):
             # setupSplit analogue (Prefiltering.cpp:287-310): pick the
@@ -243,13 +247,16 @@ def prefilter_kmer(par, command):
             if n_splits > 1:
                 log.info(f"Automatic target split: {n_splits} splits "
                          f"(device memory budget)")
-    if query_is_profile:
+    if query_is_nucl:
+        # nucleotide search: 5-letter matrix at 1 bit, no bias
+        # (Prefiltering.cpp:62-66); ungapped rescoring uses the same matrix
+        seed = ungapped = get_submat(par.sub_mat.nucl, 1.0, 0.0)
+    else:
         # profile queries use the scoring matrix for target background only
         # (Prefiltering.cpp:72-77); index k-mer threshold is 0 (:555-557)
-        seed = get_submat(par.sub_mat.aa, 8.0, -0.2)
-    else:
-        seed = get_submat(par.seed_sub_mat.aa, 8.0, -0.2)
-    ungapped = get_submat(par.sub_mat.aa, 2.0, -0.2)
+        seed = get_submat(par.sub_mat.aa if query_is_profile
+                          else par.seed_sub_mat.aa, 8.0, -0.2)
+        ungapped = get_submat(par.sub_mat.aa, 2.0, -0.2)
     qdb = None if query_is_profile else EncodedDB(qreader, seed)
     tdb = (qdb if same_db and not query_is_profile
            else EncodedDB(treader, seed))
@@ -261,7 +268,7 @@ def prefilter_kmer(par, command):
     if idx_path is not None and not target_is_profile:
         try:
             _m = load_index_meta(idx_path)
-            if not bool(_m.get("nucl", 0)):
+            if bool(_m.get("nucl", 0)) == query_is_nucl:
                 if not par.was_set("kmer_size") and _m.get("k"):
                     par.set("kmer_size", int(_m["k"]))
                 if (not par.was_set("sensitivity")
@@ -274,15 +281,21 @@ def prefilter_kmer(par, command):
         except Exception as e:
             log.warning(f"ignoring unreadable index {idx_path}: {e}")
 
-    kmer_size = par.kmer_size or compute_kmer_size(treader.total_residues())
-    kmer_thr = get_kmer_threshold(
-        par.sensitivity, kmer_size, par.k_score.aa,
-        is_profile=query_is_profile or target_is_profile)
+    if query_is_nucl:
+        kmer_size = par.kmer_size or 15
+        kmer_thr = 0                       # Prefiltering.cpp:207-216
+    else:
+        kmer_size = par.kmer_size or compute_kmer_size(
+            treader.total_residues())
+        kmer_thr = get_kmer_threshold(
+            par.sensitivity, kmer_size, par.k_score.aa,
+            is_profile=query_is_profile or target_is_profile)
     log.info(f"k-mer similarity threshold: {kmer_thr} (k = {kmer_size})")
 
     # exact k-mer matching (takeOnlyBestKmer, Prefiltering.cpp:188-192)
     take_only_best = (par.exact_kmer_matching == 1
-                      or (target_is_profile and not query_is_profile))
+                      or (target_is_profile and not query_is_profile)
+                      or (query_is_nucl and target_is_nucl))
 
     spaced = par.spaced_kmer_mode == 1
     alpha = seed.alphabet_size - 1
@@ -308,7 +321,7 @@ def prefilter_kmer(par, command):
             take_only_best_kmer=take_only_best, is_nucleotide=False)
         return _run_host(par, qreader, treader, qdb, matcher,
                          query_is_profile, same_db, out_path, alpha)
-    index_thr = 0 if query_is_profile else kmer_thr
+    index_thr = 0 if (query_is_profile or query_is_nucl) else kmer_thr
     if n_splits > 1:
         return _run_device_splits(
             par, qreader, treader, qdb, tdb, seed, ungapped, kmer_size,
@@ -341,11 +354,12 @@ def prefilter_kmer(par, command):
         table, seed, ungapped, kmer_thr, kmer_size, par.max_seqs,
         par.comp_bias_corr, par.comp_bias_corr_scale,
         par.min_ungapped_score, generator,
-        take_only_best_kmer=take_only_best, is_nucleotide=False)
+        take_only_best_kmer=take_only_best, is_nucleotide=target_is_nucl)
 
-    # the batched device matcher serves diagonal scoring; the host numpy
-    # matcher stays the oracle (and handles --diag-score 0)
-    if not par.diag_score:
+    # the batched device matcher serves diagonal scoring of protein targets;
+    # the host numpy matcher stays the oracle (and handles --diag-score 0
+    # and nucleotide targets, as in the JAX package)
+    if not par.diag_score or target_is_nucl:
         return _run_host(par, qreader, treader, qdb, matcher,
                          query_is_profile, same_db, out_path, alpha)
     dev = DevicePrefilter(
@@ -438,19 +452,34 @@ def _run_device(par, qreader, treader, qdb, dev, query_is_profile, same_db,
             item["qlen"] = float(qreader.get_seq_len(qid))
         return item
 
-    def prep(item):
+    def grouped(items):
+        # sequence queries go to stage-0 in groups of at least
+        # GROUP_RESIDUES residues (prepare_queries), profile queries alone
+        group, n = [], 0
+        for item in items:
+            group.append(item)
+            n += len(item["q"])
+            if query_is_profile or n >= GROUP_RESIDUES:
+                yield group
+                group, n = [], 0
+        if group:
+            yield group
+
+    def prep(group):
         t0 = time.perf_counter()
-        item["prep"] = dev.prepare_query(item["q"], item.get("rp"),
-                                         item.get("gen"))
-        item["prep_s"] = time.perf_counter() - t0
-        return item
+        if query_is_profile:
+            preps = [dev.prepare_query(it["q"], it["rp"], it["gen"])
+                     for it in group]
+        else:
+            preps = dev.prepare_queries([it["q"] for it in group])
+        for it, p in zip(group, preps):
+            it["prep"] = p
+        return group, time.perf_counter() - t0
 
     def consume(item):
         # prepared up front (threaded) so the flush decision sees the
         # ACTUAL expansion volume
         nonlocal batch, budget
-        prep_s = item.pop("prep_s")
-        STATS["prep_s"] += prep_s
         vol = int(item["prep"][1].sum())
         if batch and (budget + vol > dev.H_CAP_FIXED
                       or len(batch) >= dev.B_PAD):
@@ -466,8 +495,11 @@ def _run_device(par, qreader, treader, qdb, dev, query_is_profile, same_db,
     with ThreadPoolExecutor(max_workers=workers) as pool:
         for lo in range(0, qreader.size, CHUNK):
             hi = min(lo + CHUNK, qreader.size)
-            for item in pool.map(prep, map(make_item, range(lo, hi))):
-                consume(item)
+            for group, prep_s in pool.map(prep, grouped(map(make_item,
+                                                            range(lo, hi)))):
+                STATS["prep_s"] += prep_s
+                for item in group:
+                    consume(item)
     flush(drain=True)
     writer.close()
     STATS["queries"] += qreader.size

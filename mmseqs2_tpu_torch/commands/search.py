@@ -3,15 +3,16 @@
 Port of mmseqs2_tpu/commands/search.py: the protein-vs-protein path with
 single and multi sensitivity stepping, the iterative profile search
 (--num-iterations, blastpgp.sh), sequence queries against profile targets
-(searchtargetprofile.sh) and the sliced search (--exhaustive-search,
-searchslicedtargetprofile.sh). Reference: src/workflow/Search.cpp (mode
-matrix :33-123, parameter wiring :544-629) + data/workflow/blastp.sh.
+(searchtargetprofile.sh), the sliced search (--exhaustive-search,
+searchslicedtargetprofile.sh), the translated search (translated_search.sh)
+and the nucleotide search (--search-type 3, blastn.sh). Reference:
+src/workflow/Search.cpp (mode matrix :33-123, parameter wiring :544-629) +
+data/workflow/blastp.sh.
 --prefilter-mode: 0 k-mer index (default), 1 exhaustive ungapped, 2
 exhaustive (all-vs-all fake prefilter), mirroring Parameters::PREF_MODE_*;
-1 and 2 both run `ungappedprefilter`, as in the JAX package. The nucleotide
-and translated searches, --lca-search and --prefilter-mode 3 are not yet
-ported (see ROADMAP.md) and raise. --alignment-mode 4 runs
-`rescorediagonal` in place of `align`.
+1 and 2 both run `ungappedprefilter`, as in the JAX package. --lca-search
+and --prefilter-mode 3 are not yet ported (see ROADMAP.md) and raise.
+--alignment-mode 4 runs `rescorediagonal` in place of `align`.
 """
 
 import os
@@ -20,6 +21,7 @@ import shutil
 from ..db import dbtype as dbt
 from ..db.reader import DBReader
 from ..db.writer import DBWriter
+from ..utils import log
 from ..workflow import Workflow
 from ..workflow.engine import not_exists
 from .kmermatcher import _parse_mem_limit
@@ -44,6 +46,9 @@ def search(par, command):
     t_type = DBReader(tdb).base_type
     t_profile = (t_type == dbt.DBTYPE_HMM_PROFILE
                  and q_type != dbt.DBTYPE_HMM_PROFILE)
+    q_nucl = q_type == dbt.DBTYPE_NUCLEOTIDES
+    t_nucl = t_type == dbt.DBTYPE_NUCLEOTIDES
+    both_nucl = q_nucl and t_nucl
 
     # EasySearch/Search set SCORE_COV_SEQID; plain search defaults SCORE_COV
     if not par.was_set("alignment_mode") and not par.add_backtrace:
@@ -66,8 +71,14 @@ def search(par, command):
     if t_profile:
         return _search_target_profile(par, wf, qdb, tdb, out_aln)
 
-    if dbt.DBTYPE_NUCLEOTIDES in (q_type, t_type):
-        _not_ported("the nucleotide and translated search")
+    if both_nucl and par.search_type == 3:
+        return _search_nucl(par, wf, qdb, tdb, out_aln)
+    if both_nucl and par.search_type == 0:
+        log.die("Searching with nucleotide query and target database "
+                "requires --search-type 2 (translated) or 3 (nucleotide)")
+    if (q_nucl or t_nucl) and (par.search_type in (0, 2) or both_nucl):
+        return _search_translated(par, wf, qdb, tdb, out_aln,
+                                  q_nucl, t_nucl)
     if par.num_iterations > 1:
         return _search_iterative(par, wf, qdb, tdb, out_aln)
     if par.prefilter_mode not in PREF_COMMANDS:
@@ -115,6 +126,85 @@ def search(par, command):
                 current_q = next_q
         if not_exists(out_aln):
             _merge_alignments(qdb, aln_steps, out_aln)
+    if par.remove_tmp_files:
+        wf.cleanup(True)
+    return 0
+
+
+def _search_translated(par, wf, qdb, tdb, out_aln, q_nucl, t_nucl):
+    """Translated search (data/workflow/translated_search.sh): extract +
+    translate ORFs on each nucleotide side, search in protein space, map
+    alignments back to nucleotide coordinates (*3) via offsetalignment."""
+    query = query_orf = qdb
+    if q_nucl:
+        q_orfs = wf.path("q_orfs_aa")
+        wf.step(q_orfs, "extractorfs", [qdb, q_orfs, "--translate", "1"],
+                par)
+        query = query_orf = q_orfs
+    target = target_orf = tdb
+    if t_nucl:
+        t_orfs = wf.path("t_orfs_aa")
+        wf.step(t_orfs, "extractorfs", [tdb, t_orfs, "--translate", "1"],
+                par)
+        target = target_orf = t_orfs
+
+    pref = wf.path("pref")
+    wf.step(pref, "prefilter", [query, target, pref, "-s", par.sensitivity],
+            par)
+    aln = wf.path("aln")
+    wf.step(aln, "align", [query, target, pref, aln], par)
+    wf.step(out_aln, "offsetalignment",
+            [qdb, query_orf, tdb, target_orf, aln, out_aln,
+             "--search-type", "2" if par.search_type == 0
+             else par.search_type], par)
+    if par.remove_tmp_files:
+        wf.cleanup(True)
+    return 0
+
+
+def _search_nucl(par, wf, qdb, tdb, out_aln):
+    """Nucleotide/nucleotide search (data/workflow/blastn.sh +
+    setNuclSearchDefaults, Search.cpp:180-200,595-626): split long target
+    and query sequences, extract query strand frames, run the k-mer
+    prefilter + banded ksw2 alignment, map coordinates back."""
+    # setNuclSearchDefaults (unconditional unless ungapped mode)
+    if par.alignment_mode != 4:
+        par.set("alignment_mode", 3)
+    strand = par.strand if par.was_set("strand") else 2
+    kmer = par.kmer_size if par.was_set("kmer_size") else 15
+    max_seq_len = par.max_seq_len if par.was_set("max_seq_len") else 10000
+
+    target = tdb
+    tsplit = wf.path("target_seqs_split")
+    wf.step(tsplit, "splitsequence",
+            [tdb, tsplit, "--max-seq-len", max_seq_len,
+             "--sequence-overlap", par.sequence_overlap], par)
+    target = tsplit
+
+    query = qdb
+    if strand in (0, 2):
+        frames = wf.path("query_seqs")
+        fwd = "1" if strand == 2 else ""
+        wf.step(frames, "extractframes",
+                [query, frames, "--forward-frames", fwd,
+                 "--reverse-frames", "1"], par)
+        query = frames
+    qsplit = wf.path("query_seqs_split")
+    wf.step(qsplit, "splitsequence",
+            [query, qsplit, "--max-seq-len", max_seq_len,
+             "--sequence-overlap", par.sequence_overlap], par)
+    query = qsplit
+
+    pref = wf.path("pref")
+    wf.step(pref, "prefilter",
+            [query, target, pref, "-k", kmer, "--exact-kmer-matching", "1",
+             "--max-seq-len", max_seq_len, "-s", par.sensitivity], par)
+    aln = wf.path("aln")
+    wf.step(aln, "align",
+            [query, target, pref, aln, "--alignment-mode",
+             par.alignment_mode, "--max-seq-len", max_seq_len], par)
+    wf.step(out_aln, "offsetalignment",
+            [qdb, query, tdb, target, aln, out_aln], par)
     if par.remove_tmp_files:
         wf.cleanup(True)
     return 0

@@ -172,6 +172,24 @@ def device_match(starts, counts, qpos, qid, entries_seq, entries_pos, t_cat,
                       record=record, prof=prof)
 
 
+def query_windows(q_num, comp_bias, offsets_pat, span, alpha, x_index,
+                  kmer_thr):
+    """The windows of one query that hold no X over the seed pattern
+    (offsets_pat, span): their positions, their own k-mer codes, their
+    letters (W, k) and their thresholds, adjusted by the window's
+    composition bias (QueryMatcher.cpp:260-271 rounding)."""
+    idx_all, pos_all, has_x = extract_kmers(q_num, offsets_pat, span, alpha,
+                                            x_index)
+    keep = ~has_x
+    pos = pos_all[keep]
+    cols = pos[:, None] + offsets_pat[None, :]
+    bias_f = comp_bias[cols].sum(axis=1)
+    bias = np.trunc(np.where(bias_f < 0.0, bias_f - 0.5,
+                             bias_f + 0.5)).astype(np.int64)
+    return (pos, idx_all[keep], q_num[cols].astype(np.int64),
+            np.maximum(kmer_thr - bias, 0))
+
+
 def query_triples(q_num, comp_bias, offsets_pat, span, alpha, x_index,
                   kmer_thr, take_only_best, generator):
     """(kmer codes, qpos) for one query, reference enumeration order.
@@ -182,21 +200,12 @@ def query_triples(q_num, comp_bias, offsets_pat, span, alpha, x_index,
     kmer_generator._expand_batch) over the seed pattern (offsets_pat,
     span); with take_only_best each window's own k-mer. Needs no index:
     target-split mode runs it once for every split."""
-    idx_all, pos_all, has_x = extract_kmers(q_num, offsets_pat, span, alpha,
-                                            x_index)
-    keep = ~has_x
-    pos = pos_all[keep]
+    pos, own, windows, thr = query_windows(q_num, comp_bias, offsets_pat,
+                                           span, alpha, x_index, kmer_thr)
     if len(pos) == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int32)
     if take_only_best:
-        return idx_all[keep], pos.astype(np.int32)
-    # per-window composition-bias threshold adjustment
-    # (QueryMatcher.cpp:260-271 rounding)
-    bias_f = comp_bias[pos[:, None] + offsets_pat[None, :]].sum(axis=1)
-    bias = np.trunc(np.where(bias_f < 0.0, bias_f - 0.5,
-                             bias_f + 0.5)).astype(np.int64)
-    thr = np.maximum(kmer_thr - bias, 0)
-    windows = q_num[pos[:, None] + offsets_pat[None, :]].astype(np.int64)
+        return own, pos.astype(np.int32)
     codes, win_of = generator.generate_all(windows, thr, pos)
     return codes, pos[win_of].astype(np.int32)
 
@@ -296,16 +305,52 @@ class DevicePrefilter:
             comp_bias = np.zeros(len(q_num), np.float32)
             prof, corr = profile_rows(rescore_profile), None
         else:
-            if self.aa_bias_corr:
-                comp_bias = calc_local_aa_bias(
-                    q_num, self.seed.sub_matrix, self.seed.pback,
-                    self.bias_scale)
-            else:
-                comp_bias = np.zeros(len(q_num), np.float32)
+            comp_bias = self._comp_bias(q_num)
             corr = bias_correction(comp_bias)
             prof = None
         codes, qpos = self.query_triples(q_num, comp_bias, generator)
         s, c = self.index.lists(codes)
+        return self._prepared(s, c, qpos, prof, corr)
+
+    def prepare_queries(self, queries):
+        """prepare_query of several sequence queries at once: the windows
+        of all of them enumerated in one pass and their posting lists
+        looked up in one; each query's tuple is prepare_query's. Short
+        queries (a translated search's ORFs) spend most of prepare_query's
+        time in the fixed cost of its numpy calls, which a group shares."""
+        idx = self.index
+        corrs, parts = [], []
+        for q in queries:
+            comp_bias = self._comp_bias(q)
+            corrs.append(bias_correction(comp_bias))
+            parts.append(query_windows(q, comp_bias, idx.offsets_pat,
+                                       idx.span, idx.alpha, self.x_index,
+                                       self.kmer_thr))
+        pos = np.concatenate([p[0] for p in parts])
+        if self.take_only_best:
+            codes = np.concatenate([p[1] for p in parts])
+            win_of = np.arange(len(pos))
+        else:
+            codes, win_of = self.generator.generate_all(
+                np.concatenate([p[2] for p in parts]),
+                np.concatenate([p[3] for p in parts]), pos)
+        qpos = pos[win_of].astype(np.int32)
+        s, c = idx.lists(codes)
+        # a query's codes follow its windows: cut at the first window of
+        # each query (window_of does not decrease)
+        first = np.cumsum([0] + [len(p[0]) for p in parts])
+        cut = np.searchsorted(win_of, first)
+        return [self._prepared(s[lo:hi], c[lo:hi], qpos[lo:hi], None, corr)
+                for lo, hi, corr in zip(cut[:-1], cut[1:], corrs)]
+
+    def _comp_bias(self, q_num):
+        if self.aa_bias_corr:
+            return calc_local_aa_bias(q_num, self.seed.sub_matrix,
+                                      self.seed.pback, self.bias_scale)
+        return np.zeros(len(q_num), np.float32)
+
+    def _prepared(self, s, c, qpos, prof, corr):
+        """prepare_query's tuple from one query's posting-list spans."""
         # drop empty posting lists: most similar k-mers miss the index
         # entirely (sparse k-mer space)
         nz = c > 0

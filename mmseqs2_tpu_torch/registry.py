@@ -106,6 +106,29 @@ COMMANDS: List[Command] = [
     Command("createseqfiledb", "cluster_tools", "createseqfiledb", CAT_UTIL,
             "Create a DB of unaligned FASTA files from clusters",
             "createseqfiledb <seqDB> <clustDB> <outDB>", 3, 3),
+    Command("extractorfs", "nucl_tools", "extractorfs", CAT_UTIL,
+            "Extract (and translate) open reading frames",
+            "extractorfs <nuclDB> <outDB>", 2, 2),
+    Command("translatenucs", "nucl_tools", "translatenucs", CAT_UTIL,
+            "Translate a nucleotide DB to amino acids",
+            "translatenucs <nuclDB> <aaDB>", 2, 2),
+    Command("extractframes", "nucl_tools", "extractframes", CAT_UTIL,
+            "Extract frames from a nucleotide sequence DB",
+            "extractframes <seqDB> <outSeqDB>", 2, 2),
+    Command("splitsequence", "nucl_tools", "splitsequence", CAT_UTIL,
+            "Split long sequences into overlapping chunks",
+            "splitsequence <seqDB> <outSeqDB>", 2, 2),
+    Command("offsetalignment", "nucl_tools", "offsetalignment", CAT_UTIL,
+            "Map ORF/frame alignments back to contig coordinates",
+            "offsetalignment <qSrcDB> <qOrfDB> <tSrcDB> <tOrfDB> <alnDB> "
+            "<outDB>", 6, 6),
+    Command("result2dnamsa", "nucl_tools", "result2dnamsa", CAT_UTIL,
+            "Generate a DNA MSA DB from a nucleotide result DB",
+            "result2dnamsa <queryDB> <targetDB> <resultDB> <msaDB>", 4, 4),
+    Command("proteinaln2nucl", "nucl_tools", "proteinaln2nucl", CAT_UTIL,
+            "Transform protein alignments to nucleotide space",
+            "proteinaln2nucl <nuclQueryDB> <nuclTargetDB> <aaQueryDB> "
+            "<aaTargetDB> <alnDB> <outDB>", 6, 6),
     Command("filterdb", "filterdb_cmd", "filterdb", CAT_UTIL,
             "Filter result DB entries by column/file criteria",
             "filterdb <resultDB> <outDB>", 2, 2),

@@ -131,14 +131,6 @@ def test_unported_paths_say_so(tmp_path, on_cpu, capsys):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["cluster", str(GOLDEN / "qdb"), str(tmp_path / "clu"),
                   str(tmp_path / "tmp"), "--cluster-reassign", "1"])
-    nucl = REPO / "tests" / "golden" / "nucl"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["linclust", str(nucl / "ndb"), str(tmp_path / "clu"),
-                  str(tmp_path / "tmp")])
-    assert not (tmp_path / "clu.dbtype").exists()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["align", str(nucl / "ndb"), str(nucl / "ndb"),
-                  str(nucl / "n_pref"), str(tmp_path / "aln")])
 
 
 ALT = REPO / "tests" / "golden" / "alt"

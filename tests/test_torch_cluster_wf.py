@@ -148,7 +148,6 @@ def test_cluster_workflow_parity(tmp_path, on_cpu):
     assert entries_by_key(out) == entries_by_key(GOLDEN / "casclu")
 
 
-NUCL = REPO / "tests" / "golden" / "nucl" / "ndb"
 QDB = GOLDEN / "qdb"
 
 UNPORTED = {
@@ -159,9 +158,8 @@ UNPORTED = {
         "--switch-consensus-rep", "1"],
     "linclust --switch-consensus-rep": [
         "linclust", QDB, "{out}", "{tmp}", "--switch-consensus-rep", "1"],
-    "linclust nucleotide": ["linclust", NUCL, "{out}", "{tmp}"],
-    "cluster nucleotide": ["cluster", NUCL, "{out}", "{tmp}"],
-    "clusthash nucleotide": ["clusthash", NUCL, "{out}"],
+    "linclust profile": ["linclust", GOLDEN / "it_profile_0", "{out}",
+                         "{tmp}"],
 }
 
 

@@ -221,8 +221,3 @@ def test_prefilter_with_prebuilt_index_parity(tmp_path, on_cpu,
         assert got[k] == want[k], k
 
 
-def test_indexdb_of_a_nucleotide_db_says_so(tmp_path, on_cpu):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["indexdb", str(GOLDEN / "nucl" / "ndb"),
-                  str(tmp_path / "ndb")])
-    assert not (tmp_path / "ndb.idx").exists()

@@ -309,6 +309,39 @@ def test_device_exact_kmer_mode(world):
     assert all(got)
 
 
+@pytest.mark.parametrize("mode", ["similar k-mers", "exact k-mers",
+                                  "route past the key"])
+def test_prepare_queries_equals_prepare_query(world, mode):
+    """Stage-0 of a group of sequence queries in one pass gives each query
+    prepare_query's tuple, array for array and dtype for dtype: queries
+    shorter than the seed span, with X, of lengths between, and a target
+    itself; also with exact k-mers and where the lists expand on the
+    device (no host expansion)."""
+    seqs, motifs, pair = world
+    if mode == "exact k-mers":
+        pair = Pair(seqs, max_hits=20, exact=True)
+    dev = pair.dev
+    if mode == "route past the key":
+        dev = DevicePrefilter(pair.table, pair.seed, pair.ungapped,
+                              KMER_THR, 6, 20, generator=dev.generator,
+                              device="cpu")
+        dev.device_expansion = True
+    queries = [make_query(motifs, L=L) for L in (3, 10, 40, 70, 120)]
+    queries[3][[5, 30]] = pair.seed.alphabet_size - 1
+    queries.append(seqs[7].astype(np.int64))
+    got = dev.prepare_queries(queries)
+    assert len(got) == len(queries)
+    for q, g in zip(queries, got):
+        want = dev.prepare_query(q)
+        assert len(g) == len(want)
+        for a, b in zip(g, want):
+            if b is None:
+                assert a is None
+            else:
+                assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert sum(len(g[0]) for g in got) > 0
+
+
 def test_device_truncated_fallback():
     """Queries whose diagonal threshold saturates at 255 take the host
     rescoreHits route, and the port counts them."""

@@ -274,12 +274,8 @@ PROFILE = GOLDEN / "it_profile_0"
 QDB = GOLDEN / "qdb"
 
 UNPORTED = {
-    "prefilter nucleotide": ["prefilter", NUCL, NUCL, "{out}"],
     "prefilter --taxon-list": ["prefilter", QDB, QDB, "{out}",
                                "--taxon-list", "9606"],
-    "search nucleotide": ["search", NUCL, NUCL, "{out}", "{tmp}",
-                          "--search-type", "3"],
-    "search translated": ["search", NUCL, QDB, "{out}", "{tmp}"],
     "search --lca-search": ["search", QDB, QDB, "{out}", "{tmp}",
                             "--lca-search", "1"],
     "search --prefilter-mode 3": ["search", QDB, QDB, "{out}", "{tmp}",
