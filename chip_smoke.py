@@ -10,7 +10,9 @@ caught. Phases, each printing lines before the last:
      KERNEL_SOURCES, all started together;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes its stage launches, exact integer equality required; times
-     from CUDA events (median), cells per second over the cells the inputs
+     from CUDA events (the kernels' the median of several calls, the plain
+     versions' one call after the call that is compared), cells per second
+     over the cells the inputs
      need, and the card's bound for those cells. sw_multi at the align
      stage's shapes, diag_rescore at the prefilter's (2^10 to 2^17
      candidates, windows of real protein lengths, edge cases, a flush's
@@ -34,13 +36,17 @@ caught. Phases, each printing lines before the last:
      diag_rescore_profile (the profile form of the rescore) at the profile
      prefilter's shapes (2^10 to 2^17 candidates, a flush's 2^21 slots,
      edge diagonals, all-negative, stale candidates past the count, a moved
-     store, windows at both ends of the store; each without and with the
-     count), its rows made from it_profile_0; and posting_expand (B6, the
-     posting expansion of the device candidate stage) at the flush shapes
-     (128 queries, 2^10 to 2^21 expansions into entries of a real-size
-     index's length, zero-count and pad triples, lists at both ends of the
-     entries, 2^17 pad slots, and a real flush of 128 toy queries on the
-     toy DB's index), with GB/s and its share of the byte bound;
+     store, windows at both ends of the store, slots in no order of query;
+     then slots sorted by (query, target) as the path has them: 2^17, a
+     flush's 2^21 slots, queries of 2,400 positions; each without and with
+     the count), its rows made from it_profile_0; and posting_expand (B6,
+     the posting expansion of the device candidate stage) at the flush
+     shapes (128 queries, 2^10 to 2^21 expansions into entries of a
+     real-size index's length, zero-count and pad triples, lists at both
+     ends of the entries, 2^17 pad slots, a list longer than a tile and a
+     run of 3,000 zero-count triples, 2^21 expansions into an index that
+     fits the L2, and a real flush of 128 toy queries on the toy DB's
+     index), with GB/s and its share of the byte bound;
   4. golden parity: the port's `align` on the 500-query toy set equals the
      reference MMseqs2 goldens (tests/golden/toy, tests/golden/alt): default
      and non-default scoring, --alt-ali, --corr-score-weight (--realign is
@@ -63,12 +69,12 @@ caught. Phases, each printing lines before the last:
      with --linclust-version 1 equal their goldens (clu*, resc*, kmpref,
      km_*, linclu, casclu), and `prefilter` of the toy set against a
      `createindex` index equals the run without one. The profile search:
-     `result2profile` (profdb), `search qdb qdb --num-iterations 3` with
+     `result2profile` (profdb), `search qdb qdb --num-iterations 2` with
      each step's output against its golden (it_pref_0, it_aln_0,
-     it_profile_0, it_pref_tmp_1, it_pref_1, it_aln_tmp_1, it3_aln_1,
-     it3_profile_1), its
-     result against italn3 and its second iteration's merged result (the
-     2-iteration search's steps) against italn, byte for byte; `search`
+     it_profile_0, it_pref_tmp_1, it_pref_1, it_aln_tmp_1) and its result
+     against italn, byte for byte (the third iteration, italn3, was cut
+     for time: its new step, result2profile of profile queries, launches
+     no kernel); `search`
      against profile targets (tprofile/refout) and `search
      --exhaustive-search` (sliced/refout, refout2); `search
      --num-iterations 2` of the toy's first 25 queries against its first
@@ -80,7 +86,9 @@ caught. Phases, each printing lines before the last:
      entry by entry; the translated search launches diag_rescore and
      sw_multi, the nucleotide one neither. The CPU sides of
      phases 6, 7, 8 (started with phase 3), 9 and 11 run in subprocesses
-     during this phase, which is correctness only: none of its seconds is
+     at the lowest priority (nice 19: the card's runs keep the host's
+     cores) during this phase, which is correctness only: none of its
+     seconds is
      a metric, and the phase ends by waiting for them, so that nothing
      measured after it runs beside them
      (the data of phases 6, 7 and 9, phase 5's, are made at its start
@@ -128,7 +136,7 @@ caught. Phases, each printing lines before the last:
      more under torch.profiler), no gapped hit below its gapless score,
      and a sub-DB run equal on the card and the CPU (phase 4's run);
   8. clustering at real size, on phase 5's targets: `easy-linclust` of the
-     first 25,000 with the defaults, and `easy-cluster` of the first 3,000
+     first 10,000 with the defaults, and `easy-cluster` of the first 2,000
      (cuts for time) at MMseqs2's README parameters (--min-seq-id 0.5 -c 0.8
      --cov-mode 1), every kernel's count set to 0 just before each and read
      just after: wall, sequences/s, clusters, the wall by step,
@@ -145,11 +153,11 @@ caught. Phases, each printing lines before the last:
      easy-cluster of the check set runs under torch.profiler;
   9. the iterative profile search at real size: `search --num-iterations
      2` of the first 100 of phase 5's 1,000 queries (cuts for time: the
-     index builds, one an iteration, do not shrink with the queries; the
-     third iteration, a second profile round, runs in phase 4's toy
-     goldens) against
-     its 50,000 targets (phase 6's
-     target DB, no prebuilt index), every kernel's count set to 0 just
+     index builds do not shrink with the queries; a third iteration, a
+     second profile round, was cut) against its 50,000 targets (phase 5's target DB with phase 6's `createindex
+     -s 5.7` index: iteration 0's prefilter loads it, iteration 1's
+     profile prefilter builds its own, as no sequence index serves profile
+     queries; a cut for time), every kernel's count set to 0 just
      before and read just after: wall, queries/s, and per iteration the
      hits, the prefilter's seconds (index build, the profile k-mer
      enumeration, dispatch, wait), flushes, diag_rescore launches by form,
@@ -168,7 +176,9 @@ caught. Phases, each printing lines before the last:
      automatic split count is 3, whose entries must be phase 6's unsplit
      prefilter's: the wall, each split's index build and candidate stage,
      stage-0, the merge, the bytes spilled, posting_expand's and
-     diag_rescore's launches;
+     diag_rescore's launches, and from a trace of the run (the card's
+     activity only) the card's busy share and posting_expand's device
+     time;
  11. translated search at real size (blastx-style): `easy-search` of the
      first 500 of phase 5's protein queries back-translated into DNA
      (synonymous codons drawn from the seed, a stop codon after each, random
@@ -285,9 +295,12 @@ def card_line():
     return out[0].strip()
 
 
-def time_ms(fn, reps):
+def time_ms(fn, reps, warm=True):
+    """Median of `reps` CUDA-event timings of fn, after a call that warms it
+    (warm=False: the caller's last call of fn, on the same inputs, did)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -524,8 +537,9 @@ def phase_kernels(rng):
                     (got[2] == -1).all()) and bool(
                     (got[1] == c["lq"] - 1).all())
             ms = time_ms(lambda: sw.sw_multi(pv_d, *args[1:], **kw), 5)
+            # the plain version's call above warmed it
             plain_ms = time_ms(lambda: sw.sw_multi_plain(pv_d, *args[1:],
-                                                         **kw), 2)
+                                                         **kw), 1, warm=False)
             bound, by = sw_bound_ms(c["nq"], c["lq"], c["lt"], c["lanes"],
                                     cells, form)
             padded = c["lanes"] * c["lq"] * c["lt"]
@@ -643,7 +657,7 @@ def phase_exhaustive_kernels(rng):
         if extra_ok is not None:
             equal = equal and extra_ok(got)
         ms = time_ms(lambda: kernel(*args, **kw), 5)
-        plain_ms = time_ms(lambda: plain(*args, **kw), 2)
+        plain_ms = time_ms(lambda: plain(*args, **kw), 1, warm=False)
         padded = c["lanes"] * c["lq"] * c["lt"]
         # cells_computed: what the kernel computes (every padded cell unless
         # `extra` says otherwise)
@@ -978,7 +992,7 @@ def phase_rescore_kernel(rng, counts=(False, True)):
     """diag_rescore against its plain version at the prefilter's shapes,
     each case without and with the valid count (the main path passes it;
     `counts=(False,)` runs a package whose wrapper takes none, as
-    rescore_ab.py does with an older checkout). `ms` is the
+    ab.py does with an older checkout). `ms` is the
     kernel's time on the card (device_ms), `call_ms` the call's as earlier
     versions of this phase timed it (time_ms: the wrapper's host time shows
     where it is longer than the kernel). The first seven cases draw their
@@ -1085,13 +1099,39 @@ def rescore_profile_store(rng, n_t=N_TARGETS, n_q=128):
                 origin=origin, prof=prof)
 
 
-def rescore_profile_case(rng, st, ends=False, **c):
+def long_query_store(st, lq=2400, every=8):
+    """rescore_profile_store's store with every `every`-th query lengthened
+    to lq positions (its profile rows repeated)."""
+    n_q = len(st["q_len"])
+    q_len = st["q_len"].copy()
+    prof = np.zeros((n_q, lq, st["prof"].shape[2]), np.int8)
+    prof[:, :st["prof"].shape[1]] = st["prof"]
+    for b in range(0, n_q, every):
+        n = int(q_len[b])
+        prof[b] = np.resize(st["prof"][b, :n], (lq, prof.shape[2]))
+        q_len[b] = lq
+    return dict(st, q_len=q_len, prof=prof,
+                q_pad=np.zeros((n_q, lq), np.uint8),
+                corr=np.zeros((n_q, lq), np.int8))
+
+
+def rescore_profile_case(rng, st, ends=False, order=None, long=False, **c):
     """rescore_case's candidates in the profile form's argument order
     (cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, prof, q_len): `negative`
     scores every cell below 0; `ends` puts windows on the first and the
-    last target of the store, at both ends of each. Returns the arguments
-    and the cells of the valid slots before n_cand."""
+    last target of the store, at both ends of each; `order="query"` sorts
+    the slots before n_cand by (query, target), valid first, as the
+    prefilter's candidate stage hands them over (the other cases' slots
+    are in no order of query); `long` draws on long_query_store(st).
+    Returns the arguments and the cells of the valid slots before n_cand."""
+    if long:
+        st = long_query_store(st)
     args, cells = rescore_case(rng, st, **c)
+    if order == "query":
+        n = c["n_cand"]
+        perm = np.lexsort((args[1][:n], args[0][:n], ~args[3][:n]))
+        for i in range(4):
+            args[i][:n] = args[i][:n][perm]
     prof = st["prof"]
     if c.get("negative"):
         prof = (-1 - np.abs(prof.astype(np.int16))).astype(np.int8)
@@ -1132,7 +1172,12 @@ RESCORE_PROFILE_CASES = [
     dict(n_cand=1 << 12, negative=True),
     dict(n_cand=1 << 15, slots=1 << 17, stale=1 << 15),
     dict(n_cand=1 << 15, shift=7),
-    dict(n_cand=1 << 12, ends=True)]
+    dict(n_cand=1 << 12, ends=True),
+    # the path's order, slots sorted by (query, target), then with long
+    # queries (2,400 positions, 75 KB of rows each)
+    dict(n_cand=1 << 17, order="query"),
+    dict(n_cand=1 << 17, slots=1 << 21, order="query"),
+    dict(n_cand=1 << 15, order="query", long=True)]
 
 
 def phase_rescore_profile_kernel():
@@ -1140,9 +1185,12 @@ def phase_rescore_profile_kernel():
     prefilter's shapes, each case without and with the valid count: 2^10
     to 2^17 candidates, a flush's 2^21 slots, edge diagonals, all-negative
     scores, stale candidates past the count, a moved target store and
-    windows at both ends of the store; the profile rows are the golden
-    it_profile_0's, so their range is real. From its own generator, so
-    that the later phases' data stay those of the earlier runs."""
+    windows at both ends of the store, all with slots in no order of
+    query; then slots sorted by (query, target) as the path has them, at
+    2^17 candidates, in a flush's 2^21 slots, and with every eighth query
+    2,400 positions long; the profile rows are the golden it_profile_0's,
+    so their range is real. From its own generator, so that the later
+    phases' data stay those of the earlier runs."""
     import torch
     from mmseqs2_tpu_torch.ops import rescore
     rng = np.random.default_rng(SEED + 12)
@@ -1175,6 +1223,8 @@ def phase_rescore_profile_kernel():
                 np_args, run_cells, c["n_cand"] if counted else None)
             name = (rescore_case_name(st, c, counted)
                     + (" store-ends" if c.get("ends") else "")
+                    + (" by-query" if c.get("order") else "")
+                    + (" long-queries" if c.get("long") else "")
                     + " profile")
             row = dict(case=name, equal=equal, max_abs_err=err, ms=ms,
                        plain_ms=plain_ms, cells=run_cells,
@@ -1312,8 +1362,10 @@ def phase_expand_kernel():
     """posting_expand (B6) against its plain version at the flush shapes:
     128 queries and 2^10 to 2^21 expansions into entries of a real-size
     index's length (zero-count and pad triples, lists at both ends of the
-    entries), 2^21 expansions with 2^17 pad slots, and a real flush on a
-    real index (the toy DB's, its first 128 queries). From its own
+    entries), 2^21 expansions with 2^17 pad slots, 2^16 with a list longer
+    than a tile and a run of 3,000 zero-count triples, 2^21 into an index
+    of 3,000 targets (6 MB, L2-resident), and a real flush on a real index
+    (the toy DB's, its first 128 queries). From its own
     generator, so that the later phases' data stay those of the earlier
     runs."""
     rng = np.random.default_rng(SEED + 13)
@@ -1327,6 +1379,20 @@ def phase_expand_kernel():
     total = int(trip[1].sum())
     rows.append((dict(n=1 << 21, pad=True),
                  expand_row("synthetic+pad", trip, ent, total + (1 << 17))))
+    # a list longer than a tile (TILE: 1,024 expansions) and a run of
+    # 3,000 zero-count triples, more than a tile's batch of triples
+    trip = expand_case(rng, 1 << 16, ent)
+    trip[0][3], trip[1][3] = 0, 5_000
+    for a in trip:
+        a[1000:4000] = a[1000] if a is trip[3] else 0
+    rows.append((dict(n=1 << 16, long_list=True), expand_row(
+        "synthetic+long-list+zero-run", trip, ent, int(trip[1].sum()))))
+    # 2^21 expansions into an index that fits the L2 (3,000 targets' 1 M
+    # entries, 6 MB): the gathers hit the L2 instead of device memory
+    small = expand_entries(rng, n_targets=3_000)
+    trip = expand_case(rng, 1 << 21, small)
+    rows.append((dict(n=1 << 21, l2_index=True), expand_row(
+        "synthetic, L2-resident index", trip, small, int(trip[1].sum()))))
     trip, toy_ent = toy_flush()
     rows.append((dict(toy=True), expand_row(
         "toy-index flush of 128 queries", trip, toy_ent,
@@ -1764,18 +1830,13 @@ def phase_golden_profile(n_queries=25, n_targets=250):
 def golden_profile_runs():
     """The profile search on the card against the reference goldens:
     `result2profile` of the first 25 toy queries' alignments (profdb); the
-    whole `search qdb qdb --num-iterations 3` with its intermediates kept,
+    whole `search qdb qdb --num-iterations 2` with its intermediates kept,
     each step's output against its golden (pref_0: it_pref_0, prefilter
     -s 5.7; aln_0: it_aln_0, align
     --realign; profile_0: it_profile_0, result2profile; pref_tmp_1:
     it_pref_tmp_1, the profile-query prefilter; pref_1: it_pref_1,
-    subtractdbs; aln_tmp_1: it_aln_tmp_1, the profile-query align; aln_1:
-    it3_aln_1; profile_1: it3_profile_1, result2profile of profile
-    queries) and its result against italn3 byte for byte; aln_1 is also
-    the whole --num-iterations 2 search's result (the same steps with the
-    same parameters: its last align runs at -e, which equals min(-e,
-    --e-profile) at the defaults; phase_golden_profile runs that branch
-    itself), held against italn byte for byte; then
+    subtractdbs; aln_tmp_1: it_aln_tmp_1, the profile-query align) and its
+    result against italn byte for byte; then
     `search` of sequences against profile targets (tprofile/refout) and
     `search --exhaustive-search` with and without its filter
     (sliced/refout, refout2). Each line gives the kernels' launches."""
@@ -1811,14 +1872,14 @@ def golden_profile_runs():
           {k: want[k] for k in range(25)}, time.perf_counter() - t0,
           launched(before))
 
-    tmp = WORK / "golden_it3_tmp"
+    tmp = WORK / "golden_it2_tmp"
     before = {n: w.launches for n, w in wrappers.items()}
     t0 = time.perf_counter()
     with step_record() as steps:
-        run_cli(["search", qdb, qdb, WORK / "golden_italn3", tmp,
-                 "--num-iterations", 3, "--remove-tmp-files", 0])
+        run_cli(["search", qdb, qdb, WORK / "golden_italn", tmp,
+                 "--num-iterations", 2, "--remove-tmp-files", 0])
     wall = time.perf_counter() - t0
-    log("golden search --num-iterations 3 steps " + json.dumps(
+    log("golden search --num-iterations 2 steps " + json.dumps(
         [dict((k, r[k]) for k in ("command", "out", "s", "diag_rescore",
                                   "diag_rescore_profile", "sw_multi",
                                   "sw_multi_by_form") if k in r)
@@ -1827,26 +1888,22 @@ def golden_profile_runs():
                       ("profile_0", "it_profile_0"),
                       ("pref_tmp_1", "it_pref_tmp_1"),
                       ("pref_1", "it_pref_1"),
-                      ("aln_tmp_1", "it_aln_tmp_1"), ("aln_1", "it3_aln_1"),
-                      ("profile_1", "it3_profile_1")):
+                      ("aln_tmp_1", "it_aln_tmp_1")):
         rec = next(r for r in steps if r["out"] == out)
-        check(f"search --num-iterations 3: {out} ({gold})",
+        check(f"search --num-iterations 2: {out} ({gold})",
               entries(tmp / out), entries(GOLDEN / gold), rec["s"],
               {k: rec[k] for k in ("sw_multi", "diag_rescore",
                                    "diag_rescore_profile") if rec[k]})
-    for out, gold in ((WORK / "golden_italn3", "italn3"),
-                      (tmp / "aln_1", "italn")):
-        same = [suf for suf in ("", ".index")
-                if pathlib.Path(f"{out}{suf}").read_bytes()
-                != (GOLDEN / f"{gold}{suf}").read_bytes()]
-        verdict = f"differ in {same}" if same else "equal byte for byte"
-        log(f"golden search --num-iterations {3 if gold == 'italn3' else 2} "
-            f"({gold}): data and index {verdict}, "
-            f"{wall:.2f} s for the three iterations, launches "
-            f"{json.dumps(launched(before))}")
-        if same:
-            raise AssertionError(f"the iterative search differs from {gold}"
-                                 f" ({same})")
+    out = WORK / "golden_italn"
+    same = [suf for suf in ("", ".index")
+            if pathlib.Path(f"{out}{suf}").read_bytes()
+            != (GOLDEN / f"italn{suf}").read_bytes()]
+    verdict = f"differ in {same}" if same else "equal byte for byte"
+    log(f"golden search --num-iterations 2 (italn): data and index "
+        f"{verdict}, {wall:.2f} s, launches {json.dumps(launched(before))}")
+    if same:
+        raise AssertionError(f"the iterative search differs from italn "
+                             f"({same})")
     if wrappers["diag_rescore_profile"].launches == before[
             "diag_rescore_profile"]:
         raise AssertionError("the profile-query prefilter launched no "
@@ -2106,15 +2163,15 @@ def device_spans_s(events):
     return busy / 1e6, by_name
 
 
-def traced(fn, host=True):
-    """fn() under torch.profiler (CPU and CUDA activities; without `host`
-    the card's alone, a smaller trace); returns the profiler and fn's wall
+def traced(fn):
+    """fn() under torch.profiler with the card's activity only (what
+    trace_summary reads; host events made the traces of long host-bound
+    steps costly to write and read); returns the profiler and fn's wall
     seconds, the card synchronised at both ends."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU] * host
-                 + [ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2423,9 +2480,10 @@ def split_prefilter(easy, min_splits=3):
     min_splits splits; every kernel's count set to 0 just before and read
     just after: the wall, each split's index build and candidate stage,
     stage-0, the merge, the bytes spilled, the device calls and the
-    launches, beside phase 6's unsplit prefilter of the same inputs, whose
-    entries (its tmp's pref_0) the run must give entry for entry."""
-    import torch
+    launches, and from a trace of the run (the card's activity only; its
+    wall is the traced run's) the card's busy share and posting_expand's
+    device time, beside phase 6's unsplit prefilter of the same inputs,
+    whose entries (its tmp's pref_0) the run must give entry for entry."""
     from mmseqs2_tpu_torch.commands import prefilter_kmer as pk
     from mmseqs2_tpu_torch.commands.common import open_seq_db
     tmp = WORK / "es_tmp"
@@ -2437,12 +2495,13 @@ def split_prefilter(easy, min_splits=3):
     for w in wrappers.values():
         w.launches = 0
     pk.reset_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run_cli(["prefilter", tmp / "query", tmp / "target", out, "-s", "5.7",
-             "--split-memory-limit", limit])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    # under torch.profiler: posting_expand's device time on the path
+    prof, wall = traced(lambda: run_cli(
+        ["prefilter", tmp / "query", tmp / "target", out, "-s", "5.7",
+         "--split-memory-limit", limit]))
+    trace = trace_summary(export_trace(prof, "split prefilter"),
+                          "split prefilter", wall,
+                          focus="posting_expand_kernel")
     launches = {n: w.launches for n, w in wrappers.items() if w.launches}
     st = dict(pk.STATS)
     n_splits = len(st["split_index_s"])
@@ -2457,6 +2516,11 @@ def split_prefilter(easy, min_splits=3):
         stage0_worker_sum_s=st["prep_s"], merge_s=st["split_merge_s"],
         spill_bytes=st["split_spill_bytes"], device_calls=st["flushes"],
         hits=st["hits"], launches=launches,
+        posting_expand_path=dict(
+            launches=trace["focus"]["count"], s=trace["focus"]["s"],
+            ms_per_launch=1e3 * trace["focus"]["s"]
+            / max(trace["focus"]["count"], 1)),
+        busy_share=trace["busy_share"],
         spill_left=os.path.exists(f"{out}.split_tmp"),
         unsplit=dict(prefilter_s=easy["prefilter_s"],
                      index_build_s=easy["prefilter"]["index_build_s"],
@@ -2964,14 +3028,16 @@ def cluster_cpu_check(n_check=1_000, n_dup=100):
 @contextlib.contextmanager
 def cpu_side(label, script, args, out):
     """Runs `script` (python -c, argv `args`) with the CPU requested in a
-    subprocess while the block runs; leaving the block waits for it
-    (sets out['cpu_s'], the seconds the script itself took) and raises with
-    its stderr if it failed. The subprocess is killed if the block
-    raises."""
+    subprocess while the block runs, at the lowest priority (nice 19), so
+    that the card's runs beside it keep the host's cores; leaving the block
+    waits for it (sets out['cpu_s'], the seconds the script itself took)
+    and raises with its stderr if it failed. The subprocess is killed if
+    the block raises."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="4",
                MMSEQS2_TPU_TORCH_DEVICE="cpu")
     stem = WORK / f"cpu_side_{label.replace(' ', '_')}"
-    timed = (f"import time as _t\n_t0 = _t.perf_counter()\n{script}\n"
+    timed = (f"import os as _os, time as _t\n_os.nice(19)\n"
+             f"_t0 = _t.perf_counter()\n{script}\n"
              f"open({str(stem) + '.s'!r}, 'w').write("
              f"repr(_t.perf_counter() - _t0))\n")
     err_path = pathlib.Path(f"{stem}.err")
@@ -3026,7 +3092,9 @@ def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=2,
     (dna_queries) against them, both against one `createindex -s 5.7` of
     the targets (the card's phase 6 builds its index inside its prefilter;
     phase 6 shows both routes equal);
-    `search --num-iterations` of the first n_iterative; and, on createdb's
+    `search --num-iterations` of the first n_iterative, with no prebuilt
+    index (the card's phase 9 loads phase 6's for iteration 0, so the two
+    routes are held equal); and, on createdb's
     DBs of the two files (phase 5's bytes), `ungappedprefilter` of the
     first n_exhaustive queries against the first n_exhaustive_targets
     targets and `gappedprefilter` of the first n_gapped against them.
@@ -3104,8 +3172,10 @@ def iteration_steps(steps, it, last, result="it_res"):
 
 def phase_iterative(check, n_queries=100, iterations=2):
     """blastpgp at real size: `search --num-iterations` of the first
-    n_queries records of phase 5's queries against its targets (phase 6's
-    createdb of them: no prebuilt index), every kernel's count set to 0
+    n_queries records of phase 5's queries against its targets (phase 5's
+    createdb of them, with phase 6's `createindex -s 5.7` index: iteration
+    0's prefilter loads it, iteration 1's builds its profile index), every
+    kernel's count set to 0
     just before and read just after. Prints the wall, queries/s and, per
     iteration, hits, the prefilter's seconds (index build, stage-0 with
     the profile k-mer enumeration, dispatch, wait), its route, flushes and
@@ -3124,13 +3194,24 @@ def phase_iterative(check, n_queries=100, iterations=2):
     from mmseqs2_tpu_torch.workflow import engine
     # the first n_queries query records (the CPU side's first ones among
     # them; createdb's keys follow no record order, so results are held
-    # against the CPU side's by query name) and phase 6's target DB
+    # against the CPU side's by query name) and phase 5's target DB, which
+    # phase 6 indexed
     records = (WORK / "queries.fasta").read_text().split(">")[1:]
     (WORK / "it_queries.fasta").write_text(
         "".join(">" + r for r in records[:n_queries]))
     qdb = WORK / "it_q"
     run_cli(["createdb", WORK / "it_queries.fasta", qdb])
-    tdb = WORK / "es_tmp" / "target"
+    tdb = WORK / "tdb"
+    if not os.path.exists(f"{tdb}.idx"):
+        raise AssertionError("phase 6's createindex index is missing")
+    # every index build of the run is counted: iteration 0 must load the
+    # prebuilt index, each profile iteration builds its own
+    builds = []
+    build_index = prefilter_kmer.build_index
+
+    def counted_build(*args, **kwargs):
+        builds.append(1)
+        return build_index(*args, **kwargs)
     tmp = WORK / "it_tmp"
     aligner.reset_stats()
     prefilter_kmer.reset_stats()
@@ -3143,11 +3224,19 @@ def phase_iterative(check, n_queries=100, iterations=2):
     t0 = time.perf_counter()
     traced_steps = dict(pref_tmp_1="profile-query prefilter",
                         aln_tmp_1="profile-query align")
-    with step_record(trace=traced_steps) as steps:
-        run_cli(["search", qdb, tdb, WORK / "it_res", tmp,
-                 "--num-iterations", iterations, "--remove-tmp-files", 0])
+    prefilter_kmer.build_index = counted_build
+    try:
+        with step_record(trace=traced_steps) as steps:
+            run_cli(["search", qdb, tdb, WORK / "it_res", tmp,
+                     "--num-iterations", iterations, "--remove-tmp-files", 0])
+    finally:
+        prefilter_kmer.build_index = build_index
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if len(builds) != iterations - 1:
+        raise AssertionError(f"the iterative search built {len(builds)} "
+                             f"indexes, not one a profile iteration: "
+                             f"iteration 0 did not load phase 6's")
     launches = {n: w.launches for n, w in wrappers.items()}
     for name in ("sw_multi", "diag_rescore", "diag_rescore_profile"):
         if launches[name] <= 0:
@@ -3185,7 +3274,7 @@ def phase_iterative(check, n_queries=100, iterations=2):
     n_hits = sum(v.count(b"\n") for v in res_entries.values())
     res = dict(
         queries=n_queries, targets=N_TARGETS, iterations=iterations,
-        wall_s=wall, queries_per_s=n_queries / wall, hits=n_hits,
+        index_builds=len(builds), wall_s=wall, queries_per_s=n_queries / wall, hits=n_hits,
         queries_with_hits=sum(1 for v in res_entries.values() if v),
         launches=dict(launches,
                       sw_multi_by_form=dict(sw.sw_multi.form_launches)),
@@ -3212,7 +3301,7 @@ def phase_iterative(check, n_queries=100, iterations=2):
     traces = {}
     for out, label in traced_steps.items():
         rec = next(r for r in steps if r["out"] == out)
-        role, focus = (("prefilter", "rescore_kernel")
+        role, focus = (("prefilter", "rescore_profile_kernel")
                        if rec["command"] == "prefilter"
                        else ("align", "sw_kernel"))
         traces[role] = trace_summary(rec.pop("trace_path"), label, rec["s"],
@@ -3220,7 +3309,7 @@ def phase_iterative(check, n_queries=100, iterations=2):
     return res, traces
 
 
-def phase_clustering(check, n_linclust=25_000, n_cluster=3_000):
+def phase_clustering(check, n_linclust=10_000, n_cluster=2_000):
     """Clustering at real size on phase 5's SwissProt-like targets:
     easy-linclust of the first n_linclust with the defaults, easy-cluster of
     the first n_cluster at MMseqs2's README parameters (both cuts for the
@@ -3381,8 +3470,7 @@ def phase_translated(check, n_queries=500, n_traced=512):
     sub = sub_db(orf_db, n_traced, WORK / "tr_orfs_sub")
     prefilter_kmer.reset_stats()
     prof, traced_wall = traced(lambda: run_cli(
-        ["prefilter", sub, tdb, WORK / "tr_pref_traced", "-s", "5.7"]),
-        host=False)
+        ["prefilter", sub, tdb, WORK / "tr_pref_traced", "-s", "5.7"]))
     path = export_trace(prof, "translated prefilter")
     full = entries(tmp / "search_tmp" / "pref")
     part = entries(WORK / "tr_pref_traced")
@@ -3571,9 +3659,17 @@ def main():
         launches_translated=tr["launches"]["diag_rescore"],
         launches_translated_golden=nucl_launches["diag_rescore"])]
     prep = next(r for c, r in prows if c["n_cand"] == 1 << 17
-                and "slots" not in c and not c["counted"])
+                and "slots" not in c and not c["counted"]
+                and "order" not in c)
     pflush = next(r for c, r in prows if c["n_cand"] == 1 << 17
-                  and c.get("slots") == 1 << 21 and c["counted"])
+                  and c.get("slots") == 1 << 21 and c["counted"]
+                  and "order" not in c)
+    porder = next(r for c, r in prows if c["n_cand"] == 1 << 17
+                  and "slots" not in c and not c["counted"]
+                  and c.get("order"))
+    porder_flush = next(r for c, r in prows if c["n_cand"] == 1 << 17
+                        and c.get("slots") == 1 << 21 and c["counted"]
+                        and c.get("order"))
     kern.append(dict(
         name="diag_rescore_profile", route="cuda",
         source="mmseqs2_tpu_torch/csrc/rescore.cu",
@@ -3584,7 +3680,10 @@ def main():
         bound_by=prep["bound_by"], library_ms=None,
         equal=all(r["equal"] for _, r in prows), at=prep["case"],
         flush_shape_ms=pflush["ms"], flush_shape_bound_ms=pflush["bound_ms"],
-        flush_shape_at=pflush["case"],
+        flush_shape_at=pflush["case"], path_order_ms=porder["ms"],
+        path_order_bound_ms=porder["bound_ms"],
+        path_order_at=porder["case"], path_order_flush_ms=porder_flush["ms"],
+        path_order_flush_bound_ms=porder_flush["bound_ms"],
         path_trace=it_traces["prefilter"].get("focus"),
         launches_clustering=clu_launches["diag_rescore_profile"]))
     replaces = dict(gapless="mmseqs2_tpu/ops/pallas_sw.py:396",
@@ -3617,7 +3716,7 @@ def main():
             at=xrep["case"], launches_clustering=clu_launches[name],
             **path_forms.get(name, {})))
     erep = next(r for c, r in erows if c.get("n") == 1 << 21
-                and not c.get("pad"))
+                and not c.get("pad") and not c.get("l2_index"))
     kern.append(dict(
         name="posting_expand", route="cuda",
         source="mmseqs2_tpu_torch/csrc/expand.cu",
@@ -3633,6 +3732,7 @@ def main():
         real_flush_ms=big["route"]["kernel"]["ms"],
         real_flush_bound_ms=big["route"]["kernel"]["bound_ms"],
         real_flush_at=big["route"]["kernel"]["case"],
+        path_split=big["split"]["posting_expand_path"],
         launches_clustering=clu_launches["posting_expand"],
         launches_iterative=it["launches"]["posting_expand"]))
     shutil.rmtree(WORK)

@@ -16,22 +16,55 @@
 // valid count and n = 0 give 0. The caller caps at 255 where it needs the
 // capped score; nothing is rescored twice.
 //
-// The profile form (B4', diag_rescore_profile_launch) is the same kernel,
-// instantiated with PROFILE = true: only a cell's score changes,
+// The profile form (B4', diag_rescore_profile_launch, its own kernel
+// rescore_profile_kernel) changes only a cell's score,
 //
 //   s_l = prof[qid, qs + l, t_cat[t_off[id] + ts + l]]
 //
 // with prof (n_q, lq, 32) int8, one 32-byte row (one sector) a query
 // position. It replaces the XLA program device_stages.make_rescore under
 // _chunked_rescore, which _device_match (prefilter/device.py:96) runs for
-// profile queries: pallas_rescore.py:_kernel never had a profile form. Its
-// bound, by the same count: each window's target bytes and its profile
-// rows read once, n x (1 + 32) bytes a window of n cells, at 3.35 TB/s.
+// profile queries: pallas_rescore.py:_kernel never had a profile form.
+// - What bounds it: bytes, by the same count as the letters form's: each
+//   window's target bytes and its profile rows read once, n x (1 + 32)
+//   bytes a window of n cells, at 3.35 TB/s. What the card really moves is
+//   a 32-byte sector a cell, one row's, for its one byte: 691 MB at 2^17
+//   candidates of phase 3 (2.2 10^7 cells), from L2 where the profiles
+//   (6 MB) are not in L1.
+// - What held the first design back (the letters kernel with a template
+//   parameter for the cell's score; 0.172 ms at 2^17 candidates in no
+//   order of query, 0.070 ms on slots sorted by query, the path's order).
+//   It took the letters form's schedule whole: the window loop unrolled
+//   by two, a second copy of the run for full runs, a cell's score loaded
+//   inside the scoring of the run; ptxas spilled 28 bytes in that
+//   instantiation under four blocks an SM.
+// - The redesign: the profile form is its own kernel, rescore_profile_kernel,
+//   an instantiation of the letters form's body (rescore_body) that differs
+//   in how a lane gets its run's 16 scores (a signed byte load a cell from
+//   its row, at its letter, as soon as the pass's target words are in; the
+//   next pass's words are asked for before, as the letters form's) and in
+//   running one pass of the window loop at a time with one copy of the run;
+//   64 registers, no spill. The slots reach it sorted by (query, target)
+//   (sort_dup_packed), so a block's warps read the rows of a few queries
+//   and these stay in L1: 0.056 ms at 2^17 candidates on the path's order.
+//   Slots in no order of query take their rows from L2, a 32-byte sector a
+//   cell, and the L1's throughput of lines bounds them: one step of a
+//   group's eight lanes reads rows 16 apart, eight lines (0.165 ms).
+// - Variants timed (PERF.md, by ab.py, each in one call with the first
+//   design): a block staging its chunk's query rows in shared memory
+//   (48 KB, cp.async; slower: the carve-out took L1 from the target words
+//   and the block waited at its barriers); groups streaming through their
+//   windows with no wait for a warp's longest (slower: more shuffles a
+//   pass, and no latency was exposed); a gathered route, in which a
+//   group's lanes fetch neighbouring rows and exchange letters and scores
+//   through shared memory (36% faster on slots in no order of query, slower
+//   on the path's order, which the prefilter always hands over: not kept);
+//   a run's 16 scores packed into four words before they are scored, with
+//   the window loop unrolled by one and by two, and the first design's
+//   scoring in this body (each slower on the path's order); three blocks
+//   an SM (slower).
 // The windows, the valid count, stale slots and the zero-fill are the
-// letters form's. Each cell reads its score byte from its window's row
-// (rows + l x 32 + letter); a lane's 16 rows are 512 contiguous bytes. That
-// is a simple first design: staging a window's rows in shared memory is
-// later work.
+// letters form's.
 //
 // The valid count. The prefilter's candidate stage front-compacts its
 // candidates into a buffer of the flush's own slot count (2^21 on the main
@@ -105,7 +138,8 @@
 
 #define THREADS 256
 // four blocks an SM: at most 64 registers a thread (ptxas spills a few
-// bytes for it; the kernel ran faster at 32 warps an SM than at 24)
+// bytes for it in the letters form, which ran faster at 32 warps an SM
+// than at 24)
 #define MIN_BLOCKS 4
 #define MAX_ALPHA 32
 #define MAX_DEVICES 16
@@ -113,6 +147,8 @@
 constexpr int G = 8;     // lanes a candidate
 constexpr int K = 16;    // cells a lane scores serially
 constexpr int NW = K / 4;
+
+constexpr int PROW = 32;  // the profile form: bytes of a profile row
 
 struct Args {
     const int* cqid;
@@ -173,13 +209,24 @@ struct Summary {
     int b;        // max(0, its best segment)
 };
 
+// A run's summary after two more cells, of scores s1 and s2: the prefix
+// max and the best take both cells' values in one three-way max (DPX).
+__device__ __forceinline__ void add_cells(Summary& r, int s1, int s2) {
+    const int S1 = r.S + s1;
+    r.S = S1 + s2;
+    r.maxc = __vimax3_s32(r.maxc, S1, r.S);
+    const int h1 = __viaddmax_s32(r.h, s1, s1);   // max(h, 0) + s
+    r.h = __viaddmax_s32(h1, s2, s2);
+    r.b = __vimax3_s32(r.b, h1, r.h);
+}
+
 // One pass's words of a lane: target letters, query letters, corrections.
 struct Words {
     uint32_t t[NW], q[NW], c[NW];
 };
 
 // The profile form loads only the target letters: its scores are read
-// from the window's profile rows while the run is scored.
+// from the window's profile rows.
 template <bool PROFILE>
 __device__ __forceinline__ void load_pass(const Args& a, const uint8_t* tp,
                                           const uint8_t* qp,
@@ -197,52 +244,54 @@ __device__ __forceinline__ void load_pass(const Args& a, const uint8_t* tp,
 // for a full run, which leaves no test in the loop). Two cells at a time:
 // their letters unpacked into the 16-bit halves of one word, so that one
 // shift and one add give both byte offsets into the 32-wide matrix table
-// (q * 128 + t * 4 < 4,096); the prefix max and the best take both cells'
-// values in one three-way max (DPX). The profile form reads cell k's score
-// from rows[k * 32 + letter], rows being the run's first profile row, for
-// the cells inside the window only.
-template <bool PROFILE>
+// (q * 128 + t * 4 < 4,096).
 __device__ __forceinline__ Summary score_run(const Words& w, int kk,
-                                             const int* lut,
-                                             const int8_t* rows) {
+                                             const int* lut) {
     const char* base = reinterpret_cast<const char*>(lut);
     Summary r = {0, 0, 0, 0};
 #pragma unroll
     for (int k = 0; k < K; k += 2) {
-        int s1, s2;
-        if (PROFILE) {
-            const unsigned tw = w.t[k >> 2] >> (8 * (k & 3));
-            s1 = k < kk ? (int)__ldg(rows + k * 32 + (tw & 31)) : 0;
-            s2 = k + 1 < kk
-                     ? (int)__ldg(rows + (k + 1) * 32 + ((tw >> 8) & 31))
-                     : 0;
-        } else {
-            const unsigned sel = (k & 2) ? 0x4342u : 0x4140u;
-            const unsigned t2 = __byte_perm(w.t[k >> 2], 0, sel);
-            const unsigned q2 = __byte_perm(w.q[k >> 2], 0, sel);
-            const unsigned off = (q2 << 7) + (t2 << 2);
-            const int sh = 8 * (k & 3);
-            s1 = *reinterpret_cast<const int*>(base + (off & 0xffff))
+        const unsigned sel = (k & 2) ? 0x4342u : 0x4140u;
+        const unsigned t2 = __byte_perm(w.t[k >> 2], 0, sel);
+        const unsigned q2 = __byte_perm(w.q[k >> 2], 0, sel);
+        const unsigned off = (q2 << 7) + (t2 << 2);
+        const int sh = 8 * (k & 3);
+        int s1 = *reinterpret_cast<const int*>(base + (off & 0xffff))
                  + (int)(int8_t)(w.c[k >> 2] >> sh);
-            s2 = *reinterpret_cast<const int*>(base + (off >> 16))
+        int s2 = *reinterpret_cast<const int*>(base + (off >> 16))
                  + (int)(int8_t)(w.c[k >> 2] >> (sh + 8));
-            if (k >= kk) s1 = 0;
-            if (k + 1 >= kk) s2 = 0;
-        }
-        const int S1 = r.S + s1;
-        r.S = S1 + s2;
-        r.maxc = __vimax3_s32(r.maxc, S1, r.S);
-        const int h1 = __viaddmax_s32(r.h, s1, s1);   // max(h, 0) + s
-        r.h = __viaddmax_s32(h1, s2, s2);
-        r.b = __vimax3_s32(r.b, h1, r.h);
+        if (k >= kk) s1 = 0;
+        if (k + 1 >= kk) s2 = 0;
+        add_cells(r, s1, s2);
+    }
+    return r;
+}
+
+// The profile form's summary of the first `kk` of a lane's K cells: cell
+// k's score is the signed byte of its row (`rows`: the row of the run's
+// first cell) at its letter, read only inside the window (0 past kk).
+__device__ __forceinline__ Summary score_rows(const Words& w, int kk,
+                                              const uint8_t* rows) {
+    const int8_t* r8 = reinterpret_cast<const int8_t*>(rows);
+    Summary r = {0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < K; k += 2) {
+        const unsigned tw = w.t[k >> 2] >> (8 * (k & 3));
+        const int s1 = k < kk ? (int)__ldg(r8 + k * PROW + (tw & 31)) : 0;
+        const int s2 = k + 1 < kk
+                           ? (int)__ldg(r8 + (k + 1) * PROW + ((tw >> 8) & 31))
+                           : 0;
+        add_cells(r, s1, s2);
     }
     return r;
 }
 
 // The best segment of a group's window of n cells (n = 0: no candidate),
 // every lane of the warp calling together. Passes of G K cells, the next
-// pass's words asked for before this one is scored. The profile form's qp is
-// the window's first profile row (cp unused).
+// pass's words asked for before this one is scored. The letters form
+// scores a run from its words (qp, cp: the window's first query letter and
+// correction); the profile form from its rows (qp: the window's first
+// profile row).
 template <bool PROFILE>
 __device__ __forceinline__ int score_window(const Args& a, const int* lut,
                                             int n, const uint8_t* tp,
@@ -258,17 +307,18 @@ __device__ __forceinline__ int score_window(const Args& a, const int* lut,
     int kk = min(max(n - o, 0), K);
     Words w = {};
     if (kk > 0) load_pass<PROFILE>(a, tp, qp, cp, o, w);
-#pragma unroll 2
+    // the profile form one pass at a time (by two: slower, PERF.md)
+#pragma unroll (PROFILE ? 1 : 2)
     for (int base = 0; base < n_warp; base += G * K) {
         const int o_next = o + G * K;
         const int kk_next = min(max(n - o_next, 0), K);
         Words w_next = {};
         if (kk_next > 0) load_pass<PROFILE>(a, tp, qp, cp, o_next, w_next);
         Summary r = {0, 0, 0, 0};
-        const int8_t* rows = reinterpret_cast<const int8_t*>(qp) + o * 32;
-        if (kk > 0)
-            r = kk == K ? score_run<PROFILE>(w, K, lut, rows)
-                        : score_run<PROFILE>(w, kk, lut, rows);
+        if (PROFILE)
+            r = score_rows(w, kk, qp + (long long)o * PROW);
+        else if (kk > 0)
+            r = kk == K ? score_run(w, K, lut) : score_run(w, kk, lut);
         // exclusive sum-scan of S: the running sum P before the run
         int x = r.S;
 #pragma unroll
@@ -343,7 +393,7 @@ __device__ __forceinline__ Fields load_fields(const Args& a, long long c,
 }
 
 // A valid slot's window: its cells, and the offsets of its first target
-// byte and its first query byte.
+// byte and its first query byte (its flat query row, qid lq + qs).
 struct Window {
     int n;
     long long t, q;
@@ -362,24 +412,28 @@ __device__ __forceinline__ Window window_of(const Args& a, const Fields& f) {
     return w;
 }
 
-template <bool PROFILE>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-rescore_kernel(const Args a) {
-    // the matrix 32 wide, zero outside A x A: lut[q * 32 + t] (letters
-    // form only)
-    __shared__ int lut[MAX_ALPHA * MAX_ALPHA];
-    if (!PROFILE) {
-        for (int i = threadIdx.x; i < MAX_ALPHA * MAX_ALPHA; i += THREADS) {
-            const int q = i / MAX_ALPHA, t = i % MAX_ALPHA;
-            lut[i] =
-                q < a.alpha && t < a.alpha ? a.submat[q * a.alpha + t] : 0;
-        }
-    }
-    const bool counted = a.n_valid != nullptr;
-    const int n_eff =
-        counted ? min(max(*a.n_valid, 0), a.n_cand) : a.n_cand;
-    __syncthreads();
+// Slots a warp takes at once (a batch, one a lane): from 32 / G up to 32
+// while every warp still gets a batch.
+__device__ __forceinline__ int batch_slots(int n_eff, long long n_warps) {
+    int B = 32 / G;
+    while (B < 32 && (long long)n_eff >= 2LL * B * n_warps) B *= 2;
+    return B;
+}
 
+__device__ __forceinline__ int valid_count(const Args& a) {
+    return a.n_valid != nullptr ? min(max(*a.n_valid, 0), a.n_cand)
+                                : a.n_cand;
+}
+
+// Both forms' kernel body (lut: the letters form's matrix table; n_eff:
+// the slots before the valid count). Batches by a grid-stride loop. Each lane reads its slot's fields (the
+// next batch's asked for at the start of this one) and window; the groups
+// then score the batch's valid slots NPW at a time, each window handed over
+// by shuffles.
+template <bool PROFILE>
+__device__ __forceinline__ void rescore_body(const Args& a, const int* lut,
+                                             int n_eff) {
+    const bool counted = a.n_valid != nullptr;
     constexpr int NPW = 32 / G;           // candidates a warp scores at once
     const unsigned full = 0xffffffffu;
     const int lane = threadIdx.x & 31;
@@ -387,13 +441,7 @@ rescore_kernel(const Args a) {
     const long long n_warps = (long long)gridDim.x * (THREADS / 32);
     const long long warp =
         ((long long)blockIdx.x * THREADS + threadIdx.x) >> 5;
-    // Slots a warp takes at once (a batch, one a lane, by a grid-stride
-    // loop): from NPW up to 32 while every warp still gets a batch. Each
-    // lane reads its slot's fields (the next batch's asked for at the
-    // start of this one) and window; the groups then score the batch's
-    // valid slots NPW at a time, each window handed over by shuffles.
-    int B = NPW;
-    while (B < 32 && (long long)n_eff >= 2LL * B * n_warps) B *= 2;
+    const int B = batch_slots(n_eff, n_warps);
     const long long step = n_warps * B;
     long long c0 = warp * B;
     Fields f = load_fields(a, c0 + lane, lane < B && c0 + lane < n_eff,
@@ -415,7 +463,7 @@ rescore_kernel(const Args a) {
 #pragma unroll
             for (int i = 0; i < NPW; ++i) vm &= vm - 1;
             const uint8_t* qp =
-                PROFILE ? reinterpret_cast<const uint8_t*>(a.prof) + q * 32
+                PROFILE ? reinterpret_cast<const uint8_t*>(a.prof) + q * PROW
                         : a.q_let + q;
             const int best = score_window<PROFILE>(
                 a, lut, has ? n : 0, a.t_cat + t, qp,
@@ -429,19 +477,40 @@ rescore_kernel(const Args a) {
     zero_fill(a.out, n_eff, a.n_cand);
 }
 
+// The letters form.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+rescore_kernel(const Args a) {
+    // the matrix 32 wide, zero outside A x A: lut[q * 32 + t]
+    __shared__ int lut[MAX_ALPHA * MAX_ALPHA];
+    for (int i = threadIdx.x; i < MAX_ALPHA * MAX_ALPHA; i += THREADS) {
+        const int q = i / MAX_ALPHA, t = i % MAX_ALPHA;
+        lut[i] = q < a.alpha && t < a.alpha ? a.submat[q * a.alpha + t] : 0;
+    }
+    const int n_eff = valid_count(a);
+    __syncthreads();
+    rescore_body<false>(a, lut, n_eff);
+}
+
+// The profile form.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+rescore_profile_kernel(const Args a) {
+    rescore_body<true>(a, nullptr, valid_count(a));
+}
+
 // Blocks the card holds at once, asked once per device and form and kept.
 static int g_blocks[2][MAX_DEVICES];
 
-template <bool PROFILE>
-static int grid_blocks(int dev, int* out) {
-    int& cached = g_blocks[PROFILE][dev];
+static int grid_blocks(int dev, bool profile, int* out) {
+    int& cached = g_blocks[profile][dev];
     if (cached == 0) {
         int sms = 0, per_sm = 0;
         cudaError_t e =
             cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         if (e != cudaSuccess) return (int)e;
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, rescore_kernel<PROFILE>, THREADS, 0);
+            &per_sm, profile ? (const void*)rescore_profile_kernel
+                             : (const void*)rescore_kernel,
+            THREADS, 0);
         if (e != cudaSuccess) return (int)e;
         if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
         cached = sms * per_sm;
@@ -452,21 +521,24 @@ static int grid_blocks(int dev, int* out) {
 
 // Launches one form on `stream` with the candidate and target fields of
 // `a` set; returns the CUDA error code (0 = ok).
-template <bool PROFILE>
-static int launch(const Args& a, void* stream) {
+static int launch(const Args& a, bool profile, void* stream) {
     if (a.n_cand <= 0) return 0;
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
     if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
     int blocks = 0;
-    int err = grid_blocks<PROFILE>(dev, &blocks);
+    int err = grid_blocks(dev, profile, &blocks);
     if (err != 0) return err;
     // no more blocks than the slots could use
     const long long per_block = (long long)(THREADS / 32) * (32 / G);
     const long long useful = (a.n_cand + per_block - 1) / per_block;
     if (useful < blocks) blocks = (int)useful;
-    rescore_kernel<PROFILE><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
+    if (profile)
+        rescore_profile_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+            a);
+    else
+        rescore_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -511,7 +583,7 @@ extern "C" int diag_rescore_launch(
     a.q_bytes = (long long)n_q * lq;
     a.submat = (const int*)submat;
     a.alpha = alpha;
-    return launch<false>(a, stream);
+    return launch(a, false, stream);
 }
 
 // Launches the profile form on `stream`; returns the CUDA error code
@@ -526,5 +598,5 @@ extern "C" int diag_rescore_profile_launch(
     Args a = candidate_args(cqid, cid, cdiag, cvalid, n_valid, n_cand, t_cat,
                             t_bytes, t_off, t_len, lq, q_len, out);
     a.prof = (const int8_t*)prof;
-    return launch<true>(a, stream);
+    return launch(a, true, stream);
 }

@@ -38,9 +38,13 @@ entries.
 The kernel's bound is bytes: 6 B in and 10 B out per expansion, and 20 B
 in per triple, the least the function needs (starts, qpos, qid and a
 32-bit length; the interface's counts and int64 running sum carry 12 B
-more). csrc/expand.cu's header has the design: tiles of consecutive
-expansions, a warp's 32-ary search for a tile's triples, a thread's binary
-search inside them, no atomics.
+more, and the kernel reads the running sum, not the counts).
+csrc/expand.cu's header has the design: tiles of 1,024 consecutive
+expansions; each tile's first and last triple found by 32-ary searches,
+four tiles' at once; the tile's triples loaded into shared memory; each
+triple's first expansion in the tile marked and one block-wide max-scan
+giving every expansion its triple; a warp's loads and stores cover 32
+consecutive expansions; no atomics.
 """
 
 import ctypes

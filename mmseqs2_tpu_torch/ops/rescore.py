@@ -30,8 +30,8 @@ with prof (B, Lq, 32) int8, each query position's row padded to 32 bytes.
                       cummin), on any device.
   window_cells        the cells of each slot's window (-1: no candidate).
   diag_rescore_profile, diag_rescore_profile_plain
-                      the profile form's wrapper (its own `launches`) and
-                      plain version, on the same kernel template.
+                      the profile form's wrapper (its own `launches`, its
+                      own kernel) and plain version.
   profile_rows        packs a query's integer (L, A) rescore profile into the
                       int8 (L, 32) rows the profile form reads; raises on a
                       value outside int8 (never clamps).
@@ -56,6 +56,12 @@ the group combines the summaries with one exclusive sum-scan and one
 min-scan per 128 cells; the target bytes, query letters and corrections
 come in as aligned words. All int32: the bound is
 set by bytes, not operations, and a window's running sum can pass int16.
+
+The profile form's kernel (its own, rescore_profile_kernel) runs the same
+body and differs only in how a lane gets its run's 16 scores: it reads
+them from their 16 profile rows at once, as soon as the pass's target
+letters are in. The path hands it slots sorted by (query, target), so a
+block reads the rows of a few queries and they stay in L1.
 """
 
 import ctypes

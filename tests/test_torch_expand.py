@@ -4,7 +4,10 @@ against the JAX package: posting_expand_plain against the JAX seg_expand
 and the gathers of stage_candidates on random CSR triples (zero-count
 triples, lists at both ends of the entries, pad triples), and the port's
 stage_candidates against the JAX stage_candidates, unpacked (nt=None) and
-packed (nt), on the same inputs. Every value is an integer: tolerance 0.
+packed (nt), on the same inputs; and a numpy model of the kernel's
+schedule (tiles, their triples' ranges and batches, the marks and the
+max-scan) against the plain version at its edges. Every value is an
+integer: tolerance 0.
 The kernel itself is held against the plain version on the card (`cuda`
 cases, skipped without one)."""
 
@@ -209,6 +212,167 @@ def test_packed_and_int64_keys_share_the_scan():
     assert int(a[5].sum()) > 20
 
 
+# -- a model of the kernel's schedule -------------------------------------------
+
+# csrc/expand.cu: threads a block, expansions a thread (THREADS apart),
+# triples a batch, tiles whose ranges a block finds together
+THREADS, ITEMS, TILE_T, AHEAD = 256, 4, 1024, 4
+TILE = THREADS * ITEMS
+
+
+def test_the_model_has_the_kernels_design():
+    from mmseqs2_tpu_torch import PACKAGE_DIR
+    text = (PACKAGE_DIR / "csrc" / "expand.cu").read_text()
+    assert f"constexpr int THREADS = {THREADS};" in text
+    assert f"constexpr int ITEMS = {ITEMS};" in text
+    assert f"constexpr int TILE_T = {TILE_T};" in text
+    assert "constexpr int AHEAD = NWARPS / 2;" in text and THREADS // 64 == \
+        AHEAD
+    # after the scan, thread tid expands positions i THREADS + tid
+    assert "const long long e = tile + (long long)i * THREADS + tid;" in text
+    assert "const int t = s.owner[i * THREADS + tid];" in text
+
+
+def model_expand(c, cap, grid):
+    """posting_expand_kernel's schedule on `grid` blocks: tiles of TILE
+    consecutive expansions by a grid-stride loop; every AHEAD tiles a block
+    finds the first and last triple of its next AHEAD tiles (the first t
+    with cum[t] > e, for the tile's first and last expansion); a tile's
+    triples come in batches of at most TILE_T; each triple with a count
+    marks its first expansion in the batch (a list begun before it marks
+    the batch's first) and a max-scan over the tile, four consecutive
+    positions a thread, gives every position its triple, written back to
+    the tile's table; thread tid then expands positions i THREADS + tid:
+    the entry is starts + e - the running sum before the triple. Returns
+    (key, diag as u16) and counts of what the tiles met."""
+    starts, counts, qpos, qid = (c[k].astype(np.int64) for k in
+                                 ("starts", "counts", "qpos", "qid"))
+    seq = c["entries_seq"].astype(np.int64) & 0xFFFFFFFF
+    pos = c["entries_pos"].astype(np.int64)
+    cum = np.cumsum(counts)
+    total = min(int(cum[-1]) if len(cum) else 0, cap)
+    key = np.full(cap, -1, np.int64)
+    diag = np.full(cap, -1, np.int64)
+    seen = dict(tiles=0, batches=0, empty_batches=0, begun_before=0,
+                list_past_tile=0, pad_tiles=0)
+    for blk in range(grid):
+        tiles = list(range(blk * TILE, cap, grid * TILE))
+        for i, tile in enumerate(tiles):
+            if i % AHEAD == 0:
+                ranges = {}
+                for j in range(AHEAD):
+                    lo = tile + j * grid * TILE
+                    hi = min(lo + TILE, cap, total)
+                    if lo < hi:
+                        ranges[j] = [int(np.searchsorted(cum, e, "right"))
+                                     for e in (lo, hi - 1)]
+            end = min(tile + TILE, cap)
+            real = min(end, total)
+            key[max(real, tile):end] = I64_MAX
+            diag[max(real, tile):end] = 0
+            seen["tiles"] += 1
+            if real <= tile:
+                seen["pad_tiles"] += 1
+                continue
+            tb, t_last = ranges[i % AHEAD]
+            eb = tile
+            while eb < real:
+                nt = min(t_last + 1 - tb, TILE_T)
+                bc = cum[tb:tb + nt]
+                first = np.concatenate([[cum[tb - 1] if tb else 0], bc[:-1]])
+                be = min(real, int(bc[-1]))
+                owner = np.full(TILE, -1)
+                for j in range(nt):
+                    if bc[j] > first[j] and first[j] < be:
+                        owner[max(first[j], eb) - tile] = j
+                        seen["begun_before"] += first[j] < eb
+                        seen["list_past_tile"] += (first[j] < tile and
+                                                   bc[j] > end)
+                # the scan: each thread's four positions, then the block
+                table = np.maximum.accumulate(owner)
+                # thread tid reads position i THREADS + tid of the table
+                pos_of = (np.arange(ITEMS)[:, None] * THREADS
+                          + np.arange(THREADS)[None, :]).ravel()
+                e = tile + pos_of
+                e = e[(e >= eb) & (e < be)]
+                t = table[e - tile]
+                ent = starts[tb + t] + e - first[t]
+                key[e] = (qid[tb + t] << 32) | seq[ent]
+                diag[e] = (qpos[tb + t] - pos[ent]) & 0xFFFF
+                seen["batches"] += 1
+                seen["empty_batches"] += be == eb
+                eb, tb = be, tb + nt
+    assert (key != -1).all() and (diag >= 0).all()
+    return key, diag.astype(np.uint16), seen
+
+
+def edge_csr(kind, seed=40):
+    """make_csr's triples for the schedule's edges: a list longer than a
+    tile (TILE + 800 entries), a run of 2,500 zero-count triples (a batch
+    of only zero-count triples, between lists), or only zero-count
+    triples, or none."""
+    if kind == "no-triples":
+        return make_csr(seed, k=0, n_pad=0)
+    c = make_csr(seed, k=2400, n_entries=9000, max_count=6)
+    if kind == "long-list":
+        c["starts"][100], c["counts"][100] = 50, TILE + 800
+    elif kind == "zero-run":
+        # 2,500 empty lists of the query at triple 1,000
+        at, n = 1000, 2500
+        fill = dict(starts=0, counts=0, qpos=0, qid=c["qid"][at])
+        for k, v in fill.items():
+            c[k] = np.insert(c[k], at, np.full(n, v, c[k].dtype))
+    elif kind == "all-zero":
+        c["counts"][:] = 0
+    return c
+
+
+EXPAND_EDGES = {
+    "long-list": dict(extra=37, grid=3),
+    "zero-run": dict(extra=0, grid=2),
+    "cap-below-total": dict(extra=None, grid=2),
+    "all-zero": dict(extra=100, grid=2),
+    "no-triples": dict(extra=64, grid=1),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(EXPAND_EDGES))
+def test_expand_model_matches_plain(kind):
+    """The tiled schedule's key and diagonal equal the plain version's (and
+    through it the JAX package's expansion) at the schedule's edges: a list
+    longer than a tile, tiles that begin inside a list, a batch of only
+    zero-count triples, a cap below the total, only zero-count triples and
+    no triple at all."""
+    spec = EXPAND_EDGES[kind]
+    c = edge_csr("plain" if kind == "cap-below-total" else kind)
+    total = int(c["counts"].sum())
+    cap = total // 2 + 3 if spec["extra"] is None else total + spec["extra"]
+    key, diag, seen = model_expand(c, cap, spec["grid"])
+    pk, pd = expand.posting_expand_plain(*port_args(c), cap)
+    assert np.array_equal(key, pk.numpy())
+    assert np.array_equal(diag, pd.numpy().view(np.uint16))
+    if kind == "long-list":
+        assert seen["list_past_tile"] > 0 and seen["begun_before"] > 1
+    if kind == "zero-run":
+        assert seen["empty_batches"] > 0
+    if kind in ("all-zero", "no-triples"):
+        assert seen["pad_tiles"] == seen["tiles"] > 0
+    if kind == "cap-below-total":
+        assert total > cap and seen["batches"] > 0
+
+
+@pytest.mark.parametrize("kind", ["long-list", "zero-run",
+                                  "cap-below-total"])
+def test_expand_edges_plain_matches_jax(kind):
+    c = edge_csr("plain" if kind == "cap-below-total" else kind)
+    total = int(c["counts"].sum())
+    cap = total // 2 + 3 if kind == "cap-below-total" else total + 16
+    key, diag = expand.posting_expand_plain(*port_args(c), cap)
+    want_key, want_diag = jax_expansion(c, cap)
+    assert np.array_equal(key.numpy(), want_key)
+    assert np.array_equal(diag.numpy().view(np.uint16), want_diag)
+
+
 # -- the CUDA kernel (needs the card) ------------------------------------------
 
 @pytest.fixture
@@ -230,6 +394,23 @@ def test_kernel_matches_plain(cuda_device, seed, k, extra):
     want = expand.posting_expand_plain(*args, total + extra)
     torch.cuda.synchronize()
     assert expand.posting_expand.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(EXPAND_EDGES))
+def test_kernel_at_the_schedules_edges(cuda_device, kind):
+    """The kernel against its plain version at the schedule model's edges:
+    a list longer than a tile, a batch of only zero-count triples, a cap
+    below the total, only zero-count triples, no triple."""
+    spec = EXPAND_EDGES[kind]
+    c = edge_csr("plain" if kind == "cap-below-total" else kind)
+    total = int(c["counts"].sum())
+    cap = total // 2 + 3 if spec["extra"] is None else total + spec["extra"]
+    args = port_args(c, cuda_device)
+    got = expand.posting_expand(*args, cap)
+    want = expand.posting_expand_plain(*args, cap)
+    torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

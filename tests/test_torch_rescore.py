@@ -9,8 +9,11 @@ against the same loop, at the kernel's G = 8 and K = 16. The profile form
 (diag_rescore_profile: a cell's score read from its query's int8 profile
 row) against a Kadane loop over the profile, the JAX package's
 device_stages.make_rescore, and the letters form on the profile that a
-query's letters and corrections make. Every output is an integer:
-tolerance 0.
+query's letters and corrections make; and a numpy model of the profile
+kernel's schedule (its warp batches, each lane's run of 16 scores read
+from their rows, the passes and scans) against the plain version, on
+slots sorted by (query, target) and not. Every output is an
+integer: tolerance 0.
 
 The card tests (the kernel against its plain version, and a whole flush of
 the prefilter's device stages against the same flush on the CPU) need a
@@ -502,6 +505,189 @@ def test_kernel_model_matches_kadane(kind, n):
             assert got == 0
 
 
+# -- a model of the profile kernel's schedule ---------------------------------
+
+# csrc/rescore.cu: threads a block; candidates a warp scores at once
+THREADS, NPW = 256, 32 // G
+
+
+def test_the_profile_model_has_the_kernels_design():
+    text = (PACKAGE_DIR / "csrc" / "rescore.cu").read_text()
+    assert f"#define THREADS {THREADS}" in text
+    # one body, the forms differing in how a lane gets its run's scores
+    assert "rescore_body<true>(a, nullptr, valid_count(a));" in text
+    assert "rescore_body<false>(a, lut, n_eff);" in text
+    # a cell's score a signed byte of its row; the profile form one pass
+    # of the window loop at a time
+    assert "(int)__ldg(r8 + k * PROW + (tw & 31))" in text
+    assert "#pragma unroll (PROFILE ? 1 : 2)" in text
+
+
+def model_pass(s, base, carry_sum, carry_min):
+    """One pass of a group over cells [base, base + G K) of a window, from
+    the scores its lanes' runs hold (s[base + j K + k] for lane j): each
+    run summarised (sum, largest prefix sum, Kadane state, best), combined
+    by the exclusive sum-scan and the min-scan. Returns (the lanes' best,
+    carry_sum, carry_min)."""
+    best, incl, ms = 0, carry_sum, []
+    for j in range(G):
+        run = s[base + j * K:base + (j + 1) * K]
+        S = maxc = h = b = 0
+        for v in run:
+            S += int(v)
+            maxc = max(maxc, S)
+            h = max(h, 0) + int(v)
+            b = max(b, h)
+        P = incl
+        incl += S
+        gmin = min([carry_min] + ms)
+        ms.append(P + S - max(h, 0))
+        if len(run):
+            best = max(best, b, maxc + P - gmin)
+    return best, incl, min([carry_min] + ms)
+
+
+def model_profile_kernel(case, grid, n_valid=None):
+    """rescore_profile_kernel's schedule on `grid` blocks: each warp takes
+    batches of B consecutive slots (B doubled from 4 up to 32 while every
+    warp still gets a batch) by a grid-stride loop and scores their valid
+    windows NPW at a time, a group of G lanes a window, in passes of G K
+    cells, each lane reading its run's 16 scores from their rows (the
+    cells past the window scoring 0). Returns the scores and counts of what
+    the schedule met."""
+    cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, prof, q_len = case
+    n_cand = len(cqid)
+    n_eff = n_cand if n_valid is None else min(max(n_valid, 0), n_cand)
+    n_warps = grid * THREADS // 32
+    b = NPW
+    while b < 32 and n_eff >= 2 * b * n_warps:
+        b *= 2
+    out = np.full(n_cand, -1, np.int64)
+    out[n_eff:] = 0
+    seen = dict(one_query=0, mixed=0, passes=0, long_windows=0)
+    for w in range(n_warps):
+        for c0 in range(w * b, n_eff, n_warps * b):
+            slots = [c for c in range(c0, min(c0 + b, n_eff)) if cvalid[c]]
+            out[[c for c in range(c0, min(c0 + b, n_eff))
+                 if not cvalid[c]]] = 0
+            mixed = len({int(cqid[c]) for c in slots}) > 1
+            seen["mixed" if mixed else "one_query"] += 1
+            for c in slots:
+                d = int(np.int16(np.uint16(cdiag[c] & 0xFFFF)))
+                qs, ts = max(d, 0), max(-d, 0)
+                n = max(min(int(t_len[cid[c]]) - ts,
+                            int(q_len[cqid[c]]) - qs), 0)
+                t = int(t_off[cid[c]]) + ts
+                n_pass = -(-n // (G * K))
+                seen["long_windows"] += n_pass > 2
+                carry_sum = carry_min = best = 0
+                for p in range(n_pass):
+                    base = p * G * K
+                    cells = min(G * K, n - base)
+                    letters = np.zeros(G * K, np.int64)
+                    letters[:cells] = t_cat[t + base:t + base + cells]
+                    rows = np.zeros((G * K, 32), np.int64)
+                    rows[:cells] = prof[cqid[c], qs + base:qs + base + cells]
+                    # lane j reads cells [j K, j K + K): row and letter
+                    sc = np.concatenate(
+                        [rows[j * K + np.arange(K), letters[j * K:(j + 1) * K]
+                              & 31] for j in range(G)])
+                    sc[cells:] = 0
+                    full = np.zeros(base + G * K, np.int64)
+                    full[base:] = sc
+                    pb, carry_sum, carry_min = model_pass(
+                        full, base, carry_sum, carry_min)
+                    best = max(best, pb)
+                    seen["passes"] += 1
+                out[c] = best
+    assert (out >= 0).all()
+    return out, seen
+
+
+def sorted_profile_case(case):
+    """The case's valid slots first, sorted by (query, target) as the
+    prefilter's candidate stage hands them over, the invalid ones after;
+    returns the case and its valid count."""
+    case = list(case)
+    order = np.lexsort((case[1], case[0], ~case[3]))
+    for i in range(4):
+        case[i] = np.ascontiguousarray(case[i][order])
+    return case, int(case[3].sum())
+
+
+PROFILE_SCHEDULE_CASES = {
+    # slots sorted by (query, target), several queries a batch
+    "sorted": dict(case=dict(seed=21, n_q=5, n_cand=1500, n_t=60),
+                   sort=True, grid=3),
+    # a query of 2,000 rows: windows of up to 16 passes beside short ones
+    "long-query": dict(case=dict(seed=22, n_q=3, lq=2000, tmax=2100,
+                                 n_cand=400, n_t=30), sort=True, grid=2),
+    # slots in no order of query
+    "unsorted": dict(case=dict(seed=24, n_q=6, lq=40, tmax=50,
+                               n_cand=2000, n_t=80), sort=False, grid=2),
+}
+
+
+def schedule_case(name, counted):
+    """A schedule case and its valid count (None without the count): a
+    count inside the sorted valid slots, or half the unsorted slots."""
+    spec = PROFILE_SCHEDULE_CASES[name]
+    case = make_profile_case(**spec["case"])
+    if spec["sort"]:
+        case, k = sorted_profile_case(case)
+        return case, (k - 7 if counted else None)
+    return list(case), (len(case[0]) // 2 if counted else None)
+
+
+@pytest.mark.parametrize("counted", [False, True])
+@pytest.mark.parametrize("name", sorted(PROFILE_SCHEDULE_CASES))
+def test_profile_schedule_model_matches_plain(name, counted):
+    """The kernel's schedule (warp batches, runs read from their rows,
+    passes and scans) gives the plain version's scores and a Kadane
+    loop's, with and without the valid count, on slots sorted by (query,
+    target) (most batches of one query, some across a query change) and
+    slots in no order of query, with windows of up to 16 passes."""
+    case, n_valid = schedule_case(name, counted)
+    grid = PROFILE_SCHEDULE_CASES[name]["grid"]
+    got, seen = model_profile_kernel(case, grid, n_valid)
+    nv = None if n_valid is None else torch.tensor(n_valid,
+                                                   dtype=torch.int32)
+    plain = tr.diag_rescore_profile_plain(*as_torch(case), nv).numpy()
+    want = kadane_profile(case)
+    if n_valid is not None:
+        want[n_valid:] = 0
+    assert np.array_equal(got, plain)
+    assert np.array_equal(got, want)
+    assert seen["mixed"] > 0
+    if name != "unsorted":
+        assert seen["one_query"] > 0
+    if name == "long-query":
+        assert seen["long_windows"] > 0
+
+
+@pytest.mark.parametrize("name", ["sorted", "long-query"])
+def test_profile_schedule_edges_plain_matches_jax(name):
+    """The schedule's edge inputs (slots sorted by query, a query of 2,000
+    rows) through the plain version and the JAX package's make_rescore."""
+    import jax.numpy as jnp
+    from mmseqs2_tpu.prefilter import device_stages as jds
+    case, _ = sorted_profile_case(
+        make_profile_case(**PROFILE_SCHEDULE_CASES[name]["case"]))
+    cqid, cid, cdiag, cvalid, t_cat, t_off, t_len, prof, q_len = case
+    lq = prof.shape[1]
+    rescore = jds.make_rescore(
+        jnp.asarray(t_cat), jnp.asarray(t_off.astype(np.int32)),
+        jnp.asarray(t_len), jnp.asarray(prof[:, :, :ALPHA].astype(np.int32)),
+        jnp.asarray(q_len), lq_max=lq,
+        ln_max=jds.bucket(max(lq, int(t_len.max())), 64), chunk=128)
+    exact = np.asarray(rescore(*[jnp.asarray(a)
+                                 for a in (cqid, cid, cdiag, cvalid)],
+                               cap=False))
+    got = tr.diag_rescore_profile_plain(*as_torch(case)).numpy()
+    assert np.array_equal(got, exact)
+    assert got.max() > 255
+
+
 # -- the CUDA kernel (needs the card) ------------------------------------------
 
 @pytest.fixture
@@ -774,6 +960,44 @@ def test_profile_kernel_windows_at_the_run_boundaries(cuda_device):
     got, plain = run_both_profile(pcase, None, cuda_device)
     assert torch.equal(got, plain)
     assert np.array_equal(got.numpy(), kadane(case))
+    assert got.max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counted", [False, True])
+@pytest.mark.parametrize("name", sorted(PROFILE_SCHEDULE_CASES))
+def test_profile_kernel_schedule_cases(cuda_device, name, counted):
+    """The schedule model's cases on the card: slots sorted by (query,
+    target) and not, a query of 2,000 rows, windows of no cell among the
+    valid slots."""
+    case, k = schedule_case(name, counted)
+    want = kadane_profile(case)
+    if k is not None:
+        want[k:] = 0
+    got, plain = run_both_profile(case, k, cuda_device)
+    assert torch.equal(got, plain)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counted", [False, True])
+@pytest.mark.parametrize("order", ["any", "by-query"])
+def test_profile_kernel_with_more_candidates_than_warps(cuda_device, order,
+                                                        counted):
+    """20,000 candidates, more than the card's warps (4,224 on an H100), so
+    that a warp takes more than one batch of slots: in no order of query
+    (batches of several queries), and sorted by (query, target) (batches
+    of one query, and some across a query change)."""
+    case = make_profile_case(seed=41, n_q=12, lq=60, tmax=80, n_t=300,
+                             n_cand=20_000)
+    k = None
+    if order == "by-query":
+        case, k = sorted_profile_case(case)
+        k = k - 5 if counted else None
+    elif counted:
+        k = 15_000
+    got, plain = run_both_profile(list(case), k, cuda_device)
+    assert torch.equal(got, plain)
     assert got.max() > 0
 
 
