@@ -85,7 +85,7 @@ caught. Phases, each printing lines before the last:
      and align over the ORFs on the card, offsetalignment) equals `taln`,
      entry by entry; the translated search launches diag_rescore and
      sw_multi, the nucleotide one neither. The CPU sides of
-     phases 6, 7, 8 (started with phase 3), 9 and 11 run in subprocesses
+     phases 6, 7, 8 (started with phase 3), 9, 11 and 12 run in subprocesses
      at the lowest priority (nice 19: the card's runs keep the host's
      cores) during this phase, which is correctness only: none of its
      seconds is
@@ -190,9 +190,22 @@ caught. Phases, each printing lines before the last:
      launches of diag_rescore and sw_multi and their device time; the share
      of the queries whose best target is phase 6's for the protein query;
      the first 32 queries' lines equal to phase 4's CPU side's, by name;
+ 12. taxonomy at real size: `createtaxdb` of phase 6's target DB with a
+     synthetic NCBI taxonomy from the seed (write_taxonomy: a species a
+     planted family, about four taxa to each parent up to two
+     superkingdoms, every 20th target unmapped), then `easy-taxonomy -s
+     5.7` of the first 500 of phase 5's queries (cut from 1,000 for
+     time) against it with phase 6's
+     `createindex` index in place (a rebuild raises) and the taxonomy's
+     other defaults (--lca-mode 3: lcaalign's three waves on the card),
+     every kernel's count set to 0 just before and read just after: wall,
+     queries/s, step seconds, the prefilter's and lcaalign's launches and
+     read-backs, lcaalign's pairs by wave, the assignments by rank and
+     against the planted species; the first 32 queries' _lca.tsv and
+     _tophit_aln lines equal to phase 4's CPU side's, by name;
 then one JSON line listing every kernel (nine entry points), with its
-launches on the clustering, iterative and translated paths beside those of
-the path that launches it;
+launches on the clustering, iterative, translated and taxonomy paths
+beside those of the path that launches it;
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA card or outside a checkout of the repository.
 """
@@ -2028,6 +2041,53 @@ def dna_queries(n, path):
     return path
 
 
+# the synthetic taxonomy's ranks from the species up, each taxid range's
+# base, and the children a parent takes (about four to a genus, and so on)
+TAX_RANKS = [("species", 1_000_000), ("genus", 200_000), ("family", 100_000),
+             ("order", 50_000), ("class", 20_000), ("phylum", 10_000),
+             ("superkingdom", 2)]
+TAX_FANOUT = 4
+TAX_UNMAPPED_EVERY = 20
+
+
+def taxon_lineages(n_fam):
+    """The synthetic taxonomy of phase 12: family f of family_targets is
+    species TAX_RANKS[0][1] + f; each rank's taxon i hangs under the next
+    rank's taxon i // TAX_FANOUT, the superkingdoms under the root (1).
+    Returns {taxid: (parent, rank, name)}."""
+    nodes = {1: (1, "no rank", "root")}
+    count = n_fam
+    for (rank, base), (_, up) in zip(TAX_RANKS, TAX_RANKS[1:] + [(None, 1)]):
+        for i in range(count):
+            parent = 1 if up == 1 else up + i // TAX_FANOUT
+            nodes[base + i] = (parent, rank, f"{rank.capitalize()} {i}")
+        count = (count + TAX_FANOUT - 1) // TAX_FANOUT
+    return nodes
+
+
+def write_taxonomy(tfam, directory):
+    """NCBI dump files (names.dmp, nodes.dmp, merged.dmp, delnodes.dmp) of
+    taxon_lineages and an accession-to-taxid mapping of phase 5's targets:
+    target i ("T{i}") to its family's species, every TAX_UNMAPPED_EVERY-th
+    target left out. Returns (dump directory, mapping file)."""
+    directory.mkdir(exist_ok=True)
+    nodes = taxon_lineages(max(tfam) + 1)
+    with open(directory / "nodes.dmp", "w") as f:
+        f.writelines(f"{t}\t|\t{p}\t|\t{r}\t|\t\t|\n"
+                     for t, (p, r, _) in nodes.items())
+    with open(directory / "names.dmp", "w") as f:
+        f.writelines(f"{t}\t|\t{n}\t|\t\t|\tscientific name\t|\n"
+                     for t, (_, _, n) in nodes.items())
+    for name in ("merged.dmp", "delnodes.dmp"):
+        (directory / name).write_text("")
+    mapping = directory / "acc2taxid.tsv"
+    with open(mapping, "w") as f:
+        f.writelines(f"T{i}\t{TAX_RANKS[0][1] + fam}\n"
+                     for i, fam in enumerate(tfam)
+                     if i % TAX_UNMAPPED_EVERY != TAX_UNMAPPED_EVERY - 1)
+    return directory, mapping
+
+
 def name_to_key(db):
     out = {}
     with open(f"{db}.lookup") as f:
@@ -3083,15 +3143,17 @@ def cli_cpu_side(label, steps, out):
 def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=2,
                          n_exhaustive=32, n_exhaustive_targets=500,
                          n_gapped=8, n_targets=N_TARGETS, n_queries=1_000):
-    """The CPU sides of phases 6, 7, 9 and 11: phase 5's FASTA files made
-    now, from a copy of the generator as phase 5 will find it (phase 5
-    makes the same bytes again), and three subprocesses that run with the
+    """The CPU sides of phases 6, 7, 9, 11 and 12: phase 5's FASTA files
+    made now, from a copy of the generator as phase 5 will find it (phase 5
+    makes the same bytes again; its families and phase 12's taxonomy are
+    kept in the yielded dict), and three subprocesses that run with the
     CPU requested while the block runs (phase 4: correctness only):
     `easy-search` of the first n_easy queries against all the targets, then
     the translated `easy-search` of the first n_easy DNA queries
-    (dna_queries) against them, both against one `createindex -s 5.7` of
-    the targets (the card's phase 6 builds its index inside its prefilter;
-    phase 6 shows both routes equal);
+    (dna_queries) against them, then `createtaxdb` of the targets and
+    `easy-taxonomy -s 5.7` of the first n_easy queries, all against one
+    `createindex -s 5.7` of the targets (the card's phase 6 builds its
+    index inside its prefilter; phase 6 shows both routes equal);
     `search --num-iterations` of the first n_iterative, with no prebuilt
     index (the card's phase 9 loads phase 6's for iteration 0, so the two
     routes are held equal); and, on createdb's
@@ -3101,7 +3163,8 @@ def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=2,
     Leaving the block waits for them. Yields a dict with their results'
     paths and, once done, their seconds."""
     import copy
-    make_scale_data(copy.deepcopy(rng), n_targets, n_queries)
+    qfam, tfam = make_scale_data(copy.deepcopy(rng), n_targets, n_queries)
+    dump, mapping = write_taxonomy(tfam, WORK / "taxdump")
     records = (WORK / "queries.fasta").read_text().split(">")[1:]
 
     def first(n):
@@ -3111,7 +3174,8 @@ def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=2,
 
     w, tf = WORK, WORK / "targets.fasta"
     out = dict(easy_search_m8=w / "es_cpu.m8", n_easy=n_easy,
-               translated_m8=w / "tr_cpu.m8",
+               translated_m8=w / "tr_cpu.m8", taxonomy=w / "tax_cpu",
+               qfam=qfam, tfam=tfam, taxdump=dump, taxmap=mapping,
                res=w / "it_cpu_res", qdb=w / "it_cpu_q",
                n_check=n_iterative, iterations=iterations,
                x_qdb=w / "x_cpu_q", x_tdb=w / "x_cpu_t",
@@ -3126,7 +3190,11 @@ def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=2,
              out["easy_search_m8"], w / "es_cpu_tmp"],
             ["easy-search", dna_queries(
                 n_easy, w / f"dna_queries_{n_easy}.fasta"), w / "es_cpu_t",
-             out["translated_m8"], w / "tr_cpu_tmp"]],
+             out["translated_m8"], w / "tr_cpu_tmp"],
+            ["createtaxdb", w / "es_cpu_t", w / "tax_cpu_ctmp",
+             "--ncbi-tax-dump", dump, "--tax-mapping-file", mapping],
+            ["easy-taxonomy", first(n_easy), w / "es_cpu_t", out["taxonomy"],
+             w / "tax_cpu_tmp", "-s", "5.7"]],
         "iterative search": [
             ["createdb", first(n_iterative), out["qdb"]],
             ["createdb", tf, w / "it_cpu_t"],
@@ -3149,8 +3217,8 @@ def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=2,
         yield out
     out["cpu_s"] = {name: side["cpu_s"] for name, side in sides.items()}
     log(f"real-size CPU sides: easy-search of the first {n_easy} queries "
-        f"x {n_targets} targets, then the translated one of their DNA, in "
-        f"{out['cpu_s']['easy-search']:.2f} s, "
+        f"x {n_targets} targets, then the translated one of their DNA and "
+        f"their easy-taxonomy, in {out['cpu_s']['easy-search']:.2f} s, "
         f"search --num-iterations {iterations} of the first {n_iterative} "
         f"in {out['cpu_s']['iterative search']:.2f} s, ungappedprefilter of "
         f"the first {n_exhaustive} x {n_exhaustive_targets} and "
@@ -3418,10 +3486,8 @@ def phase_translated(check, n_queries=500, n_traced=512):
         prefilter_kmer.build_index = build_index
     wall = time.perf_counter() - t0
     launches = {n: w.launches for n, w in wrappers.items()}
-    for name in ("sw_multi", "diag_rescore"):
-        if launches[name] <= 0:
-            raise AssertionError(f"the translated easy-search launched no "
-                                 f"{name} kernel")
+    require_launches(launches, ("sw_multi", "diag_rescore"),
+                     "the translated easy-search")
     steps = dict(engine.STEP_SECONDS)
     pst, ast = dict(prefilter_kmer.STATS), dict(aligner.STATS)
     orfs = entries(tmp / "search_tmp" / "q_orfs_aa")
@@ -3497,6 +3563,152 @@ def phase_translated(check, n_queries=500, n_traced=512):
     if bad or not cpu:
         raise AssertionError(f"card and CPU translated search differ for "
                              f"queries {bad[:10]}")
+    return res
+
+
+def require_launches(launches, names, what):
+    """Raise unless each kernel of `names` launched in the run `what`."""
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"{what} launched no {name} kernel")
+
+
+def lca_assignments(path, qfam, n_fam):
+    """phase 12's assignments against the planted families: each query of
+    the _lca.tsv file by the rank of its taxon, and the shares of the
+    queries with a planted family assigned its species, or a taxon above
+    it on its lineage (genus to superkingdom), or off its lineage, or
+    nothing; the unrelated queries (family -1) assigned anything."""
+    nodes = taxon_lineages(n_fam)
+    by_rank, right, above, wrong, none, unrelated = {}, 0, 0, 0, 0, 0
+    lines = pathlib.Path(path).read_text().splitlines()
+    for line in lines:
+        name, taxid, rank = line.split("\t")[:3]
+        by_rank[rank] = by_rank.get(rank, 0) + 1
+        fam = qfam[int(name[1:])]
+        taxid = int(taxid)
+        if fam < 0:
+            unrelated += taxid != 0
+            continue
+        lineage, t = [], TAX_RANKS[0][1] + fam
+        while t != 1:
+            lineage.append(t)
+            t = nodes[t][0]
+        if taxid == 0:
+            none += 1
+        elif taxid == lineage[0]:
+            right += 1
+        elif taxid in lineage:
+            above += 1
+        else:
+            wrong += 1
+    planted = sum(1 for f in qfam if f >= 0)
+    return dict(lines=len(lines), by_rank=by_rank,
+                right_species=right / planted,
+                right_genus_or_above=above / planted,
+                off_lineage=wrong / planted, unassigned=none / planted,
+                unrelated_assigned=unrelated)
+
+
+def phase_taxonomy(check, n_queries):
+    """Taxonomy at real size (cell taxonomy_es_1000x50k): `createtaxdb` of
+    phase 6's target DB with the synthetic taxonomy that phase 4 wrote
+    (write_taxonomy: a species a planted family), then `easy-taxonomy -s
+    5.7` of phase 5's first n_queries queries against it, phase 6's
+    `createindex -s 5.7` index in place (a rebuild raises; the taxonomy's
+    own default, -s 2, would rebuild it: a cut for time), the other
+    taxonomy defaults kept (--lca-mode 3: search --lca-search runs
+    lcaalign's three waves on the card; --max-accept 30, --max-rejected
+    5); every kernel's count set to 0 just before and read just after.
+    Prints the wall, queries/s, each step's seconds, the prefilter's and
+    lcaalign's launches and read-backs (step_record), lcaalign's pairs by
+    wave (those its loops reached, and all it computed), and the
+    assignments by rank against the planted species. Every query has one
+    _lca.tsv line; the first check['n_easy'] queries' _lca.tsv and
+    _tophit_aln lines must equal the CPU side's (phase 4), by name."""
+    import torch
+    from mmseqs2_tpu_torch.align import aligner
+    from mmseqs2_tpu_torch.commands import align_cmd, prefilter_kmer
+    from mmseqs2_tpu_torch.ops import sw
+    from mmseqs2_tpu_torch.workflow import engine
+    tdb, tmp, prefix = WORK / "tdb", WORK / "tax_tmp", WORK / "tax"
+    if not os.path.exists(f"{tdb}.idx"):
+        raise AssertionError("phase 6's createindex index is missing")
+    fasta = WORK / "tax_queries.fasta"
+    records = (WORK / "queries.fasta").read_text().split(">")[1:]
+    fasta.write_text("".join(">" + r for r in records[:n_queries]))
+    t0 = time.perf_counter()
+    run_cli(["createtaxdb", tdb, WORK / "tax_ctmp", "--ncbi-tax-dump",
+             check["taxdump"], "--tax-mapping-file", check["taxmap"]])
+    createtaxdb_s = time.perf_counter() - t0
+
+    aligner.reset_stats()
+    prefilter_kmer.reset_stats()
+    align_cmd.reset_lca_stats()
+    engine.STEP_SECONDS.clear()
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    sw.sw_multi.form_launches = dict.fromkeys(sw.sw_multi.form_launches, 0)
+    build_index = prefilter_kmer.build_index
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("the taxonomy search rebuilt the target index "
+                             "instead of loading phase 6's")
+    prefilter_kmer.build_index = no_build
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with step_record() as steps:
+            run_cli(["easy-taxonomy", fasta, tdb, prefix, tmp, "-s", "5.7",
+                     "--remove-tmp-files", 0])
+        torch.cuda.synchronize()
+    finally:
+        prefilter_kmer.build_index = build_index
+    wall = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    require_launches(launches, ("sw_multi", "diag_rescore"),
+                     "the easy-taxonomy run")
+    # by command: the search's record and its align step's share a name
+    by_cmd = {r["command"]: r for r in steps}
+    keep = ("s", "sw_multi", "sw_multi_by_form", "diag_rescore",
+            "readbacks", "scan_host_s", "backtrace_s")
+    res = dict(
+        card=card_line(), queries=n_queries, targets=N_TARGETS, wall_s=wall,
+        queries_per_s=n_queries / wall, createtaxdb_s=createtaxdb_s,
+        step_s=dict(engine.STEP_SECONDS),
+        prefilter={k: by_cmd["prefilter"][k] for k in keep + (
+            "route", "flushes", "index_s", "prep_s", "dispatch_s",
+            "wait_s")},
+        lcaalign={k: by_cmd["lcaalign"][k] for k in keep},
+        lca_pairs_by_wave=dict(align_cmd.LCA_STATS),
+        launches=dict(diag_rescore=launches["diag_rescore"],
+                      sw_multi=launches["sw_multi"],
+                      sw_multi_by_form=dict(sw.sw_multi.form_launches),
+                      others={n: v for n, v in launches.items()
+                              if n not in ("diag_rescore", "sw_multi")}),
+        readbacks=aligner.STATS["readbacks"],
+        sw_multi_device_s=aligner.STATS["kernel_ms"] / 1e3,
+        assigned=lca_assignments(f"{prefix}_lca.tsv",
+                                 check["qfam"][:n_queries],
+                                 max(check["tfam"]) + 1))
+    log("taxonomy " + json.dumps(res))
+    if res["assigned"]["lines"] != n_queries:
+        raise AssertionError(f"easy-taxonomy wrote "
+                             f"{res['assigned']['lines']} _lca.tsv lines "
+                             f"for {n_queries} queries")
+
+    names = [r.split(None, 1)[0] for r in records[:check["n_easy"]]]
+    for suffix in ("_lca.tsv", "_tophit_aln"):
+        got = m8_by_query(f"{prefix}{suffix}")
+        cpu = m8_by_query(f"{check['taxonomy']}{suffix}")
+        bad = [q for q in names if cpu.get(q) != got.get(q)]
+        log(f"taxonomy CPU cross-check, {suffix}: first {len(names)} "
+            f"queries ({sum(len(v) for v in cpu.values())} lines), "
+            f"{len(bad)} differ")
+        if bad or not cpu:
+            raise AssertionError(f"card and CPU easy-taxonomy differ in "
+                                 f"{suffix} for queries {bad[:10]}")
     return res
 
 
@@ -3597,6 +3809,12 @@ def main():
     tr = phase_translated(rcheck)
     phase_done(11)
 
+    # 12. taxonomy at real size: easy-taxonomy against phase 6's indexed
+    # target DB with the synthetic taxonomy attached (500 queries: the
+    # script passed 950 s with 1,000 on a slow host)
+    tax = phase_taxonomy(rcheck, n_queries=500)
+    phase_done(12)
+
     # kernels line; launches are those of the run of the path that
     # launches the kernel: easy-search, ungappedprefilter, the server's
     # process under ungappedprefilter --gpu 1 (gapless_score) and under
@@ -3637,7 +3855,9 @@ def main():
         launches_iterative=it["launches"]["sw_multi"],
         launches_iterative_by_form=it["launches"]["sw_multi_by_form"],
         launches_translated=tr["launches"]["sw_multi"],
-        launches_translated_golden=nucl_launches["sw_multi"]),
+        launches_translated_golden=nucl_launches["sw_multi"],
+        launches_taxonomy=tax["launches"]["sw_multi"],
+        launches_taxonomy_lcaalign=tax["lcaalign"]["sw_multi"]),
         dict(
         name="diag_rescore", route="cuda",
         source="mmseqs2_tpu_torch/csrc/rescore.cu",
@@ -3657,7 +3877,8 @@ def main():
         launches_clustering=clu_launches["diag_rescore"],
         launches_iterative=it["launches"]["diag_rescore"],
         launches_translated=tr["launches"]["diag_rescore"],
-        launches_translated_golden=nucl_launches["diag_rescore"])]
+        launches_translated_golden=nucl_launches["diag_rescore"],
+        launches_taxonomy=tax["launches"]["diag_rescore"])]
     prep = next(r for c, r in prows if c["n_cand"] == 1 << 17
                 and "slots" not in c and not c["counted"]
                 and "order" not in c)

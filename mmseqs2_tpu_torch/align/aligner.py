@@ -298,8 +298,11 @@ class Aligner:
 
         jobs: list of (ctx, target_keys, target_seqs, target_lens,
         identity_flags). All (query, target) pairs across jobs share the
-        forward and reverse scans. Returns per-job AlnResult lists in input
-        order; semantics identical to align_query."""
+        forward and reverse scans. `eval_thr` is one threshold for every
+        job or a list of one per job. Returns per-job AlnResult lists in
+        input order; semantics identical to align_query."""
+        eval_thrs = (list(eval_thr) if isinstance(eval_thr, (list, tuple))
+                     else [eval_thr] * len(jobs))
         per_results = []
         per_sw = []
         fwd_entries = []
@@ -350,7 +353,7 @@ class Aligner:
                 res.dbcov = float(util.compute_cov(0, te, tL))
                 low_cov = not util.has_coverage(cov_thr, cov_mode,
                                                 res.qcov, res.dbcov)
-                if ev > eval_thr or low_cov:
+                if ev > eval_thrs[j] or low_cov:
                     continue  # ssw_align_private early return (mode 1, 2)
                 rev_targets.append(seqs[i][: te + 1][::-1].copy())
                 rev_qe.append(qe)

@@ -7,8 +7,9 @@ on the device per query batch; the banded backtrace runs host-side for
 accepted candidates only; a profile query (DBTYPE_HMM_PROFILE) is aligned
 with its PSSM columns (Aligner.init_profile_query). A nucleotide query is
 aligned on the host by the banded ksw2 aligner (align/nucl_aligner.py), as
-in the JAX package and the reference. `lcaalign` is not yet ported (see
-ROADMAP.md).
+in the JAX package and the reference. `lcaalign` (the approximate 2bLCA of
+the taxonomy search) runs its three passes as three waves of align_batch
+per block of queries.
 """
 
 import numpy as np
@@ -31,6 +32,22 @@ ALIGNMENT_MODE_SCORE_COV = 2
 ALIGNMENT_MODE_SCORE_COV_SEQID = 3
 ALIGNMENT_MODE_UNGAPPED = 4
 INT_MAX = 2147483647
+# queries per align_batch of `align` and per wave of `lcaalign` (one scan per
+# shape group; bigger blocks fill the 16k-lane launches better)
+BLOCK = 256
+# lcaalign's pairs by wave (score-only pass, realign of the accepted hits,
+# re-search against the top hit's target span): `pairs` aligned on the
+# device path, `used` the pairs that the per-candidate loops reach before
+# their breaks (the rest were computed and thrown away)
+LCA_STATS = {}
+
+
+def reset_lca_stats():
+    LCA_STATS.clear()
+    LCA_STATS.update(pairs=[0, 0, 0], used=[0, 0, 0])
+
+
+reset_lca_stats()
 
 
 def init_sw_mode(alignment_mode: int, cov_thr: float, seq_id_thr: float) -> int:
@@ -147,8 +164,6 @@ def align(par, command):
                       else dbt.DBTYPE_ALIGNMENT_RES)
     total_passed = 0
     aln_num = 0
-    BLOCK = 256     # queries per align_batch (one scan per shape group;
-                    # bigger blocks fill the 16k-lane launches better)
     pid = 0
     while pid < prefdb.size:
         block = []
@@ -297,6 +312,163 @@ def align(par, command):
     writer.close()
     log.info(f"{aln_num} alignments calculated, {total_passed} sequence pairs "
              f"passed the thresholds")
+    return 0
+
+
+def lcaalign(par, command):
+    """Approximate 2bLCA alignment (Alignment.cpp lcaAlign branch): find the
+    top hit, realign all prefilter candidates against the top hit's aligned
+    target subsequence, and keep those under the top hit's E-value.
+
+    The JAX package aligns the second and third passes one candidate at a
+    time and stops at each loop's break. Here each block of BLOCK queries
+    runs three waves of Aligner.align_batch: (1) every candidate, score
+    mode; (2) each query's accepted hits in realign mode; (3) every
+    candidate against its query's top-hit target span. After each wave the
+    accept/reject loops walk the computed results on the host in the same
+    order. A pair's alignment does not depend on the loop, so the bytes
+    are the same; the pairs past a loop's break are computed and dropped
+    (LCA_STATS counts both)."""
+    qdb_path, tdb_path, pref_path, out_path = par.filenames[:4]
+    same_db = qdb_path == tdb_path
+
+    submat = get_sub_mat(par, score_bias=par.score_bias)
+    qreader = open_seq_db(qdb_path)
+    treader = qreader if same_db else open_seq_db(tdb_path)
+    qdb = EncodedDB(qreader, submat)
+    tdb = qdb if same_db else EncodedDB(treader, submat)
+    prefdb = DBReader(pref_path)
+
+    # lcaAlign setup (Alignment.cpp:39-56): first pass score-only, realign
+    # top-1 with bias 0, then the lca re-search at the top hit's E-value
+    alignment_mode = par.alignment_mode
+    lca_sw_mode = init_sw_mode(max(alignment_mode, 1), 0.0, 0.0)
+    realign_sw_mode = init_sw_mode(max(alignment_mode, 2), 0.0, 0.0)
+    realign_cov = par.cov_thr
+    sw_mode = init_sw_mode(max(alignment_mode, 1), par.cov_thr,
+                           par.min_seq_id)
+
+    evaluer = EvalueComputation(treader.total_residues(), submat,
+                                par.gap_open.aa, par.gap_extend.aa)
+    aligner = Aligner(submat, par.gap_open.aa, par.gap_extend.aa, evaluer,
+                      par.comp_bias_corr, par.comp_bias_corr_scale)
+
+    writer = DBWriter(out_path, dbt.DBTYPE_ALIGNMENT_RES)
+    pid = 0
+    while pid < prefdb.size:
+        block = []
+        while pid < prefdb.size and len(block) < BLOCK:
+            query_key = prefdb.get_db_key(pid)
+            data = prefdb.get_data(pid)
+            pid += 1
+            q = dict(key=query_key, final=[])
+            block.append(q)
+            if not data:
+                continue
+            hit_keys, _, _ = parse_prefilter_entry(data)
+            qid = qreader.get_id(query_key)
+            q["ctx"] = aligner.init_query(qdb.seq_num(qid))
+            tids = []
+            for key in hit_keys:
+                tid = treader.get_id(key)
+                if tid < 0:
+                    log.die(f"Sequence {key} required by the prefilter "
+                            f"result is missing from the target database")
+                tids.append(tid)
+            q["keys"] = list(hit_keys)
+            q["tseqs"] = [tdb.seq_num(t) for t in tids]
+            q["tlens"] = [tdb.seq_len(t) for t in tids]
+            q["ident"] = [(same_db and key == query_key)
+                          or (par.include_identity and key == query_key)
+                          for key in hit_keys]
+        active = [q for q in block if "ctx" in q]
+
+        # wave 1: every candidate, score mode; accept/reject in order
+        wave = aligner.align_batch(
+            [(q["ctx"], q["keys"], q["tseqs"], q["tlens"], q["ident"])
+             for q in active], sw_mode, par.cov_mode, 0.0, par.evalue,
+            par.seq_id_mode)
+        for q, results in zip(active, wave):
+            LCA_STATS["pairs"][0] += len(results)
+            LCA_STATS["used"][0] += len(results)
+            accepted = []
+            passed = rejected = 0
+            for k, (res, is_identity) in enumerate(zip(results, q["ident"])):
+                if passed >= par.max_accept or rejected >= par.max_rejected:
+                    break
+                if is_identity:
+                    res.qcov, res.dbcov, res.seq_id = 1.0, 1.0, 1.0
+                if check_criteria(res, is_identity, par.evalue,
+                                  par.min_seq_id, par.min_aln_len,
+                                  par.cov_mode, 0.0):
+                    accepted.append((res, k))
+                    passed += 1
+                    rejected = 0
+                else:
+                    rejected += 1
+            if len(accepted) > 1:
+                by_id = {id(a[0]): a for a in accepted}
+                accepted = [by_id[id(r)] for r in
+                            sort_results([a[0] for a in accepted])]
+            q["accepted"] = accepted
+
+        # wave 2: realign every accepted hit (bias 0 -> same matrix); the
+        # top hit is the first whose coverage passes
+        realigned = [q for q in active if q["accepted"]]
+        wave = aligner.align_batch(
+            [(q["ctx"], [r.db_key for r, _ in q["accepted"]],
+              [q["tseqs"][k] for _, k in q["accepted"]],
+              [q["tlens"][k] for _, k in q["accepted"]],
+              [q["ident"][k] for _, k in q["accepted"]])
+             for q in realigned], realign_sw_mode, par.cov_mode,
+            realign_cov, float("inf"), par.seq_id_mode)
+        for q, results in zip(realigned, wave):
+            LCA_STATS["pairs"][1] += len(results)
+            q["top1"] = None
+            for (first, k), rres in zip(q["accepted"], results):
+                LCA_STATS["used"][1] += 1
+                cov_ok = autil.has_coverage(realign_cov, par.cov_mode,
+                                            rres.qcov, rres.dbcov)
+                if cov_ok or q["ident"][k]:
+                    rres.score = first.score
+                    rres.eval = first.eval
+                    q["top1"] = (rres, k)
+                    break
+
+        # wave 3: the top hit's aligned target span becomes the query of
+        # the lca pass over every candidate, at the top hit's E-value
+        lca = [q for q in realigned if q["top1"] is not None]
+        jobs, evals = [], []
+        for q in lca:
+            top1, k = q["top1"]
+            sub_q = q["tseqs"][k][top1.db_start: top1.db_end + 1]
+            jobs.append((aligner.init_query(sub_q), q["keys"], q["tseqs"],
+                         q["tlens"], [False] * len(q["keys"])))
+            evals.append(top1.eval)
+        wave = aligner.align_batch(jobs, lca_sw_mode, par.cov_mode,
+                                   realign_cov, evals, par.seq_id_mode)
+        for q, top_eval, results in zip(lca, evals, wave):
+            LCA_STATS["pairs"][2] += len(results)
+            final = []
+            rejected = 0
+            for res in results:
+                if rejected >= par.max_rejected:
+                    break
+                LCA_STATS["used"][2] += 1
+                if check_criteria(res, False, top_eval, par.min_seq_id,
+                                  par.min_aln_len, par.cov_mode,
+                                  realign_cov):
+                    final.append(res)
+                    rejected = 0
+                else:
+                    rejected += 1
+            if len(final) > 1:
+                sort_results(final)
+            q["final"] = final
+        for q in block:
+            writer.write(q["key"], "".join(
+                r.to_line(par.add_backtrace) for r in q["final"]).encode())
+    writer.close()
     return 0
 
 

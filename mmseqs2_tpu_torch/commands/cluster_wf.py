@@ -13,11 +13,10 @@ src/workflow/Linclust.cpp / Cluster.cpp parameter wiring:
 
 Port of mmseqs2_tpu/commands/cluster_wf.py for protein and nucleotide
 sequence DBs: linclust v1 and v2 (with --clust-hash), cluster v1
-(cascaded), v2 and --single-step-clustering. Not yet ported (see
-ROADMAP.md), each raising before any step runs: --cluster-reassign (needs
-swapdb and tsv2db), --switch-consensus-rep (needs pickconsensusrepfast),
-profile DBs, and the clusterupdate workflow (diffseqdbs, renamedbkeys,
-prefixid), which the registry does not list.
+(cascaded, with --cluster-reassign), v2 and --single-step-clustering, and
+the clusterupdate workflow. Not yet ported (see ROADMAP.md), each raising
+before any step runs: --switch-consensus-rep (needs pickconsensusrepfast)
+and profile DBs.
 """
 
 import os
@@ -223,14 +222,9 @@ def _auto_sensitivity(seq_id_thr: float) -> float:
     return 1.0 + (0.7 - seq_id_thr) * 10.0
 
 
-def cluster(par, command):
-    seq_db, out_db, tmp = par.filenames[:3]
-    if par.cluster_reassign:
-        _not_ported("cluster --cluster-reassign (swapdb, tsv2db)")
-    _refuse_unported(par, seq_db)
-    wf = Workflow(tmp, par.force_reuse)
-
-    # setWorkflowDefaults (Cluster.cpp:13-20)
+def set_cluster_defaults(par):
+    """setWorkflowDefaults (Cluster.cpp:13-20): the values that every step
+    of `cluster`, --cluster-reassign's too, inherits unless set."""
     if not par.was_set("cov_thr"):
         par.set("cov_thr", 0.8)
     if not par.was_set("evalue"):
@@ -242,6 +236,13 @@ def cluster(par, command):
     if not par.was_set("sensitivity"):
         par.set("sensitivity", _auto_sensitivity(par.min_seq_id))
         log.info(f"Set cluster sensitivity to -s {par.sensitivity}")
+
+
+def cluster(par, command):
+    seq_db, out_db, tmp = par.filenames[:3]
+    _refuse_unported(par, seq_db)
+    wf = Workflow(tmp, par.force_reuse)
+    set_cluster_defaults(par)
     steps = par.cluster_steps if par.was_set("cluster_steps") else (
         1 if par.sensitivity <= 2.0 else 3)
     log.info(f"Set cluster iterations to {steps}")
@@ -323,12 +324,108 @@ def cluster(par, command):
                     [next_order, cur_input + "_h", next_input + "_h"], par)
             cur_input = next_input
 
-    if not_exists(out_db):
+    if par.cluster_reassign:
+        clu = wf.path("clu")
+        wf.step(clu, "mergeclusters",
+                [seq_db, clu, clu_red] + clu_steps, par)
+        _cluster_reassign(par, wf, seq_db, clu, out_db)
+    elif not_exists(out_db):
         wf.step(out_db, "mergeclusters",
                 [seq_db, out_db, clu_red] + clu_steps, par)
     if par.remove_tmp_files:
         wf.cleanup(True)
     return 0
+
+
+def _cluster_reassign(par, wf, seq_db, clu, out_db):
+    """`--cluster-reassign`: correct cascaded-clustering errors by realigning
+    every member against its representative, pulling out members that miss
+    the clustering thresholds, and re-assigning them to their best-matching
+    seed (reference data/workflow/cascaded_clustering.sh:161-283 +
+    src/workflow/Cluster.cpp:256-268: reassign prefilter runs with the
+    swapped coverage mode, align with the original)."""
+    HUGE_E = ["--e-profile", "100000000", "-e", "100000000"]
+    aln = wf.path("reassign_aln")
+    wf.step(aln, "align", [seq_db, seq_db, clu, aln], par)
+    not_acc = wf.path("clu_not_accepted")
+    wf.step(not_acc, "subtractdbs", [clu, aln, not_acc] + HUGE_E, par)
+    not_acc_swap = wf.path("clu_not_accepted_swap")
+    wf.step(not_acc_swap, "swapdb", [not_acc, not_acc_swap], par)
+    if os.path.getsize(not_acc_swap + ".index") == 0:
+        # nothing to reassign
+        for suf in ("", ".index", ".dbtype"):
+            os.replace(clu + suf, out_db + suf)
+        return
+    acc = wf.path("clu_accepted")
+    wf.step(acc, "subtractdbs", [clu, not_acc, acc] + HUGE_E, par)
+    wrong = wf.path("seq_wrong_assigned")
+    wf.step(wrong, "createsubdb", [not_acc_swap, seq_db, wrong], par)
+    seeds = wf.path("seq_seeds")
+    wf.step(seeds, "createsubdb", [clu, seq_db, seeds], par)
+
+    # two-file merged seq DB: seeds then wrong-assigned, offsets shifted
+    # (cascaded_clustering.sh:217-224)
+    merged = wf.path("seq_seeds.merged")
+    if not_exists(merged):
+        max_off = 0
+        lines = []
+        with open(seeds + ".index", "rb") as f:
+            for line in f:
+                p = line.split(b"\t")
+                max_off = max(max_off, int(p[1]) + int(p[2]))
+                lines.append(line)
+        with open(wrong + ".index", "rb") as f:
+            for line in f:
+                p = line.split(b"\t")
+                lines.append(b"\t".join(
+                    [p[0], str(int(p[1]) + max_off).encode(), p[2]]))
+        with open(merged + ".index", "wb") as f:
+            f.writelines(lines)
+        for i, src in ((0, seeds), (1, wrong)):
+            dst = f"{merged}.{i}"
+            if os.path.lexists(dst):
+                os.unlink(dst)
+            os.symlink(os.path.abspath(src), dst)
+        import shutil
+        shutil.copyfile(seeds + ".dbtype", merged + ".dbtype")
+
+    pref = wf.path("seq_wrong_assigned_pref")
+    orig_cov = par.cov_mode
+    par.set("cov_mode", {1: 2, 2: 1}.get(orig_cov, orig_cov))
+    wf.step(pref, "prefilter", [wrong, merged, pref,
+                                "-s", round(par.sensitivity, 3)], par)
+    par.set("cov_mode", orig_cov)
+    pref_swap = wf.path("seq_wrong_assigned_pref_swaped")
+    wf.step(pref_swap, "swapdb", [pref, pref_swap], par)
+    aln2 = wf.path("seq_wrong_assigned_pref_swaped_aln")
+    wf.step(aln2, "align", [merged, wrong, pref_swap, aln2], par)
+    ocol = aln2 + "_ocol"
+    wf.step(ocol, "filterdb", [aln2, ocol, "--trim-to-one-column", 1], par)
+    plus_wrong = wf.path("clu_accepted_plus_wrong")
+    wf.step(plus_wrong, "mergedbs", [merged, plus_wrong, acc, ocol], par)
+
+    # singletons that dropped out entirely (cascaded_clustering.sh:258-263)
+    singles_tsv = wf.path("missing.single.seqs")
+    singles = singles_tsv + ".db"
+    if not_exists(singles):
+        big = set()
+        with open(plus_wrong + ".index", "rb") as f:
+            for line in f:
+                p = line.split(b"\t")
+                if int(p[2]) > 1:
+                    big.add(p[0])
+        with open(seq_db + ".index", "rb") as f, \
+                open(singles_tsv, "wb") as out:
+            for line in f:
+                k = line.split(b"\t")[0]
+                if k not in big:
+                    out.write(k + b"\t" + k + b"\n")
+        wf.step(singles, "tsv2db",
+                [singles_tsv, singles, "--output-dbtype", 6], par)
+    plus_single = wf.path("clu_accepted_plus_wrong_plus_single")
+    wf.step(plus_single, "mergedbs",
+            [seq_db, plus_single, plus_wrong, singles], par)
+    wf.step(out_db, "clust", [seq_db, plus_single, out_db], par)
 
 
 def _cluster_v2(par, wf, seq_db, out_db):
@@ -383,4 +480,175 @@ def _cluster_v2(par, wf, seq_db, out_db):
                     os.replace(clu2 + "_aln" + suf, out_db + "_aln" + suf)
     if par.remove_tmp_files:
         wf.cleanup(True)
+    return 0
+
+
+def clusterupdate(par, command):
+    """Incremental clustering update
+    (reference data/workflow/update_clustering.sh + ClusterUpdate.cpp):
+    diff the old and new sequence DBs, remap new keys past the old key
+    space, attach new sequences to existing clusters by searching against
+    representatives, and cluster the leftovers separately."""
+    old_db, new_db, old_clust, new_map_db, new_clust, tmp = \
+        par.filenames[:6]
+    if not par.was_set("alignment_mode"):
+        par.set("alignment_mode", 3)  # setClusterUpdateDefaults
+    wf = Workflow(tmp, par.force_reuse)
+    removed = wf.path("removedSeqs")
+    mapping = wf.path("mappingSeqs")
+    new_seqs = wf.path("newSeqs")
+    if not os.path.exists(removed):
+        wf.step_always("diffseqdbs", [old_db, new_db, removed, mapping,
+                                      new_seqs], par)
+    if os.path.getsize(mapping) == 0:
+        log.warning(
+            f"There are no common sequences between {old_db} and "
+            f"{new_db}.\nIf you aim to add the sequences of {new_db} to "
+            f"your previous clustering {old_clust}, concatdbs both DBs "
+            f"and rerun clusterupdate.")
+        for f in (removed, mapping, new_seqs):
+            if os.path.exists(f):
+                os.unlink(f)
+        return 1
+
+    def read_col(path, col=0):
+        out = []
+        with open(path) as f:
+            for line in f:
+                if line.strip():
+                    out.append(line.split()[col])
+        return out
+
+    if os.path.getsize(removed) > 0:
+        if par.recover_deleted:
+            rm_map = wf.path("OLDDB.removedMapping")
+            if not os.path.exists(rm_map):
+                highest = max(int(l.split("\t")[0]) for l in
+                              open(new_db + ".index"))
+                with open(rm_map, "w") as f, open(mapping, "a") as m:
+                    for i, key in enumerate(read_col(removed)):
+                        f.write(f"{key}\t{highest + 1 + i}\n")
+                        m.write(f"{key}\t{highest + 1 + i}\n")
+            wf.step(wf.path("OLDDB.removedDb"), "renamedbkeys",
+                    [rm_map, old_db, wf.path("OLDDB.removedDb"),
+                     "--subdb-mode", 1], par)
+            wf.step(wf.path("NEWDB.withOld"), "concatdbs",
+                    [new_db, wf.path("OLDDB.removedDb"),
+                     wf.path("NEWDB.withOld"), "--preserve-keys", 1,
+                     "--threads", 1], par)
+            wf.step(wf.path("NEWDB.withOld_h"), "concatdbs",
+                    [new_db + "_h", wf.path("OLDDB.removedDb_h"),
+                     wf.path("NEWDB.withOld_h"), "--preserve-keys", 1,
+                     "--threads", 1], par)
+            new_db = wf.path("NEWDB.withOld")
+        else:
+            wf.step(wf.path("REMOVEDMEMBERS"), "createsubdb",
+                    [removed, old_clust, wf.path("REMOVEDMEMBERS"),
+                     "--subdb-mode", 0], par)
+            wf.step(wf.path("REMOVEDMEMBERS.withoutDeleted"), "filterdb",
+                    [wf.path("REMOVEDMEMBERS"),
+                     wf.path("REMOVEDMEMBERS.withoutDeleted"),
+                     "--filter-file", removed, "--positive-filter", 0],
+                    par)
+            tsv = wf.path("REMOVEDMEMBERS.tsv")
+            if not os.path.exists(tsv):
+                wf.step_always(
+                    "prefixid",
+                    [wf.path("REMOVEDMEMBERS.withoutDeleted"),
+                     wf.path("REMOVEDMEMBERS.withoutDeleted.tsv"),
+                     "--tsv", 1], par)
+                with open(tsv, "w") as f:
+                    for tok in read_col(
+                            wf.path("REMOVEDMEMBERS.withoutDeleted.tsv"),
+                            1):
+                        f.write(tok + "\n")
+            wf.step(wf.path("OLCLUST.withoutDeletedKeys"), "createsubdb",
+                    [mapping, old_clust,
+                     wf.path("OLCLUST.withoutDeletedKeys"),
+                     "--subdb-mode", 1], par)
+            wf.step(wf.path("OLCLUST.withoutDeleted"), "filterdb",
+                    [wf.path("OLCLUST.withoutDeletedKeys"),
+                     wf.path("OLCLUST.withoutDeleted"),
+                     "--filter-file", removed, "--positive-filter", 0],
+                    par)
+            old_clust = wf.path("OLCLUST.withoutDeleted")
+
+    new_mapping = wf.path("newMappingSeqs")
+    if not os.path.exists(new_mapping):
+        max_id = 0
+        for idx in (old_db + ".index", new_db + ".index"):
+            for line in open(idx):
+                max_id = max(max_id, int(line.split("\t")[0]))
+        with open(wf.path("newSeqs.mapped"), "w") as f:
+            keys = read_col(new_seqs)
+            for i, key in enumerate(keys):
+                f.write(f"{key}\t{max_id + 1 + i}\n")
+        with open(new_mapping, "w") as out:
+            for line in open(mapping):
+                a, b = line.split()[:2]
+                out.write(f"{b}\t{a}\n")
+            out.write(open(wf.path("newSeqs.mapped")).read())
+        with open(new_seqs, "w") as f:
+            for tok in read_col(wf.path("newSeqs.mapped"), 1):
+                f.write(tok + "\n")
+    wf.step(new_map_db, "renamedbkeys", [new_mapping, new_db, new_map_db],
+            par)
+    new_db = new_map_db
+
+    newseq_file = new_seqs
+    if os.path.getsize(removed) > 0 and not par.recover_deleted:
+        newseq_file = wf.path("newSeqs.withMembers")
+        if not os.path.exists(newseq_file):
+            with open(newseq_file, "w") as f:
+                f.write(open(wf.path("REMOVEDMEMBERS.tsv")).read())
+                f.write(open(new_seqs).read())
+    wf.step(wf.path("NEWDB.newSeqs"), "createsubdb",
+            [newseq_file, new_db, wf.path("NEWDB.newSeqs"),
+             "--subdb-mode", 1], par)
+    wf.step(wf.path("OLDDB.repSeq"), "result2repseq",
+            [old_db, old_clust, wf.path("OLDDB.repSeq")], par)
+    # SEARCH_PAR forces --max-accept 1 (ClusterUpdate.cpp:70-74): each
+    # new sequence attaches to at most its best representative
+    wf.step(wf.path("newSeqsHits"), "search",
+            [wf.path("NEWDB.newSeqs"), wf.path("OLDDB.repSeq"),
+             wf.path("newSeqsHits"), wf.path("search"),
+             "--max-accept", 1], par)
+    wf.step(wf.path("newSeqsHits.swapped.all"), "swapdb",
+            [wf.path("newSeqsHits"), wf.path("newSeqsHits.swapped.all")],
+            par)
+    has_hits = any(int(l.split("\t")[2]) > 1 for l in
+                   open(wf.path("newSeqsHits.swapped.all.index")))
+    updated_clust = old_clust
+    if has_hits:
+        wf.step(wf.path("newSeqsHits.swapped"), "filterdb",
+                [wf.path("newSeqsHits.swapped.all"),
+                 wf.path("newSeqsHits.swapped"),
+                 "--trim-to-one-column", 1], par)
+        wf.step(wf.path("updatedClust"), "mergedbs",
+                [old_clust, wf.path("updatedClust"), old_clust,
+                 wf.path("newSeqsHits.swapped")], par)
+        updated_clust = wf.path("updatedClust")
+
+    no_hit_list = wf.path("noHitSeqList")
+    if not os.path.exists(no_hit_list):
+        with open(no_hit_list, "w") as f:
+            for line in open(wf.path("newSeqsHits.index")):
+                parts = line.split("\t")
+                if int(parts[2]) == 1:
+                    f.write(parts[0] + "\n")
+    wf.step(wf.path("toBeClusteredSeparately"), "createsubdb",
+            [no_hit_list, new_db, wf.path("toBeClusteredSeparately"),
+             "--subdb-mode", 1], par)
+    separately = os.path.getsize(
+        wf.path("toBeClusteredSeparately") + ".index") > 0
+    if separately:
+        wf.step(wf.path("newClusters"), "cluster",
+                [wf.path("toBeClusteredSeparately"),
+                 wf.path("newClusters"), wf.path("cluster")], par)
+        wf.step(new_clust, "concatdbs",
+                [updated_clust, wf.path("newClusters"), new_clust,
+                 "--preserve-keys", 1], par)
+    else:
+        wf.step(new_clust, "mvdb", [updated_clust, new_clust], par)
+    wf.cleanup(par.remove_tmp_files)
     return 0

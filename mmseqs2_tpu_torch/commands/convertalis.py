@@ -6,8 +6,9 @@ goes through the per-column renderer where floats print as "%.3f" and doubles
 (evalue) as "%.3E" (SSTR, src/commons/Util.cpp:723-740).
 mismatch/gapopen derivation at convertalignments.cpp:418-455;
 Util::parseFastaHeader accession extraction at Util.cpp:147-229.
-The taxonomy columns and the HTML output (--format-mode 3) are not yet
-ported (see ROADMAP.md) and raise.
+The taxonomy columns (taxid, taxname, taxlineage) read the target DB's
+taxonomy (taxonomy/ncbi.py). The HTML output (--format-mode 3) is not yet
+ported (see ROADMAP.md) and raises.
 """
 
 import math
@@ -169,10 +170,11 @@ def convertalis(par, command):
             t_lookup = tfull.read_lookup()
             tfull.close()
             t_source = _read_source_map(tdb_path)
+    taxonomy = tax_mapping = None
     if any(c in outcodes for c in ("taxid", "taxname", "taxlineage")):
-        raise NotImplementedError(
-            "convertalis taxonomy columns (taxid, taxname, taxlineage) are "
-            "not yet ported (see ROADMAP.md)")
+        from ..taxonomy.ncbi import MappingReader, NcbiTaxonomy
+        taxonomy = NcbiTaxonomy.open_taxonomy(tdb_path)
+        tax_mapping = MappingReader(tdb_path)
     submat_pp = None
     if "ppos" in outcodes:
         from .common import get_sub_mat
@@ -331,6 +333,18 @@ def convertalis(par, command):
                     cols.append(str(t_lookup[res.db_key][1]))
                 elif code == "tset":
                     cols.append(t_source.get(t_lookup[res.db_key][1], ""))
+                elif code == "taxid":
+                    cols.append(str(tax_mapping.lookup(res.db_key)))
+                elif code == "taxname":
+                    node = taxonomy.taxon_node(
+                        tax_mapping.lookup(res.db_key))
+                    cols.append(node.name if node is not None
+                                else "unclassified")
+                elif code == "taxlineage":
+                    node = taxonomy.taxon_node(
+                        tax_mapping.lookup(res.db_key))
+                    cols.append(taxonomy.tax_lineage(node, True)
+                                if node is not None else "unclassified")
                 elif code == "ppos":
                     # fraction of positive-scoring match columns
                     # (convertalignments.cpp:640-669); SSTR(float) = %.3f

@@ -2,8 +2,8 @@
 
 Reference: src/workflow/EasySearch.cpp (+ data/workflow/easysearch.sh):
 sets --alignment-mode 3 (SCORE_COV_SEQID) so real sequence identities reach
-the m8 output (EasySearch.cpp:18). --greedy-best-hits (summarizeresult) is
-not yet ported (see ROADMAP.md) and raises.
+the m8 output (EasySearch.cpp:18). --greedy-best-hits keeps each query's
+greedy non-overlapping best hits (summarizeresult) before convertalis.
 """
 
 import os
@@ -17,10 +17,6 @@ def is_database(path: str) -> bool:
 
 def easy_search(par, command):
     q_in, t_in, out_file, tmp = par.filenames[:4]
-    if par.greedy_best_hits:
-        raise NotImplementedError(
-            "easy-search --greedy-best-hits (summarizeresult) is not yet "
-            "ported (see ROADMAP.md)")
     wf = Workflow(tmp, par.force_reuse)
 
     if not par.was_set("alignment_mode"):
@@ -38,9 +34,19 @@ def easy_search(par, command):
     else:
         wf.step(tdb, "createdb", [t_in, tdb], par)
 
+    # --greedy-best-hits needs backtraces for summarizeresult
+    # (EasySearch.cpp:78-84)
+    if par.greedy_best_hits and not par.add_backtrace:
+        par.set("add_backtrace", True)
+
     aln = wf.path("result")
     search_tmp = wf.path("search_tmp")
     wf.step(aln, "search", [qdb, tdb, aln, search_tmp], par)
+
+    if par.greedy_best_hits:
+        best = wf.path("result_best")
+        wf.step(best, "summarizeresult", [aln, best], par)
+        aln = best
 
     from ..registry import get_command
     from ..params import Params

@@ -1,9 +1,12 @@
-"""`clusthash`: group sequences by a reduced-alphabet hash.
+"""Assorted utility commands: `clusthash` (group sequences by a
+reduced-alphabet hash), `recoverlongestorf` and `diffseqdbs`.
 
-Port of mmseqs2_tpu/commands/misc_tools.py, of which this slice needs the
-one command that the linclust workflow calls (--clust-hash). Reference
-src/util/clusthash.cpp. A nucleotide DB hashes each sequence and its
-reverse complement and keeps the smaller hash.
+Port of mmseqs2_tpu/commands/misc_tools.py, of which the port needs the
+command that the linclust workflow calls (--clust-hash), the one that the
+taxonomy workflow's contig route calls (recoverlongestorf) and the one that
+clusterupdate calls (diffseqdbs). Reference src/util/clusthash.cpp,
+recoverlongestorf.cpp and diffseqdbs.cpp. A nucleotide DB hashes each
+sequence and its reverse complement and keeps the smaller hash.
 """
 
 import numpy as np
@@ -11,9 +14,108 @@ import numpy as np
 from ..db import dbtype as dbt
 from ..db.reader import DBReader
 from ..db.writer import DBWriter
-from .nucl_tools import COMPLEMENT
+from .nucl_tools import COMPLEMENT, parse_orf_header
 
 U64 = (1 << 64) - 1
+
+
+def recoverlongestorf(par, command):
+    """From an ORF search result, emit the longest ORF key of every contig
+    whose ORFs all missed (reference src/util/recoverlongestorf.cpp).
+    Output is a headerless flat file of ORF keys."""
+    orfdb, resdb, out = par.filenames[:3]
+    hdr = DBReader(orfdb + "_h")
+    contig_longest = {}  # contig -> (orfKey, orfLen)
+    orf_contig = {}
+    for i in range(hdr.size):
+        orf_key = hdr.get_db_key(i)
+        loc = parse_orf_header(hdr.get_data(i))
+        if loc is None:
+            continue
+        contig, frm, to = loc[0], loc[1], loc[2]
+        orf_len = abs(frm - to) + 1
+        orf_contig[orf_key] = contig
+        cur = contig_longest.get(contig)
+        if cur is None or orf_len > cur[1]:
+            contig_longest[contig] = (orf_key, orf_len)
+    hdr.close()
+    accepted, eliminated = set(), set()
+    with DBReader(resdb) as r:
+        for i in range(r.size):
+            key = r.get_db_key(i)
+            contig = orf_contig.get(key)
+            if contig is None:
+                continue
+            if r.get_entry_len(i) > 1:
+                accepted.add(contig)
+            eliminated.add(contig)
+    with open(out, "w") as f:
+        for contig in eliminated - accepted:
+            f.write(f"{contig_longest[contig][0]}\n")
+    dbt.write_dbtype(out, dbt.DBTYPE_OMIT_FILE)
+    return 0
+
+
+def diffseqdbs(par, command):
+    """Diff two sequence DBs by header: emit removed / kept(mapped) / new
+    key files (reference src/util/diffseqdbs.cpp)."""
+    from ..db.fasta import parse_fasta_header
+
+    old_db, new_db, removed_f, kept_f, new_f = par.filenames[:5]
+    use_seq_id = bool(par.use_seq_id) if par.was_set("use_seq_id") else False
+
+    def read_keys(db):
+        out = []
+        with DBReader(db + "_h") as r:
+            for i in range(r.size):
+                h = r.get_data(i)
+                if use_seq_id:
+                    name = parse_fasta_header(h).decode()
+                else:
+                    name = "".join(h.decode(errors="replace").split())
+                out.append((name, r.get_db_key(i)))
+        return out
+
+    keys_old = read_keys(old_db)
+    keys_new = read_keys(new_db)
+    keys_new.sort(key=lambda p: p[0])
+    # duplicate headers in new DB are invalidated
+    invalid_new = [False] * len(keys_new)
+    for i in range(len(keys_new) - 1):
+        if keys_new[i][0] == keys_new[i + 1][0]:
+            invalid_new[i + 1] = True
+    # duplicate headers in old DB are deleted
+    deleted = [False] * len(keys_old)
+    order = sorted(range(len(keys_old)), key=lambda i: keys_old[i][0])
+    for a, b in zip(order, order[1:]):
+        if keys_old[a][0] == keys_old[b][0]:
+            deleted[b] = True
+    names_new = [p[0] for p in keys_new]
+    checked = [False] * len(keys_new)
+    mapped = [0] * len(keys_new)
+    import bisect
+    for i, (name, _key) in enumerate(keys_old):
+        if deleted[i]:
+            continue
+        j = bisect.bisect_left(names_new, name)
+        if j < len(keys_new) and names_new[j] == name:
+            checked[j] = True
+            mapped[j] = i
+        else:
+            deleted[i] = True
+    with open(kept_f, "w") as kf, open(new_f, "w") as nf:
+        for j in range(len(keys_new)):
+            if invalid_new[j]:
+                continue
+            if checked[j]:
+                kf.write(f"{keys_old[mapped[j]][1]}\t{keys_new[j][1]}\n")
+            else:
+                nf.write(f"{keys_new[j][1]}\n")
+    with open(removed_f, "w") as rf:
+        for i in range(len(keys_old)):
+            if deleted[i]:
+                rf.write(f"{keys_old[i][1]}\n")
+    return 0
 
 
 def clusthash(par, command):

@@ -22,7 +22,9 @@ builds one index per contiguous slice of the targets and merges the
 per-split candidates exactly (_run_device_splits): its output is the
 unsplit run's, byte for byte. Nucleotide queries seed with the 5-letter
 matrix at 1 bit and exact 15-mers (Prefiltering.cpp:62-66,188-192,207-216).
---taxon-list is not yet ported (see ROADMAP.md) and raises.
+--taxon-list drops the targets outside a taxonomy expression after the
+double-diagonal detection (QueryMatcherTaxonomyHook) and, as in the JAX
+package, takes the host matcher's route; only that option takes it.
 """
 
 import os
@@ -41,8 +43,8 @@ from ..device import get_device
 from ..ops.tantan import likelihood_ratio_matrix, mask_batch
 from ..ops.encode import calc_local_aa_bias
 from ..ops.rescore import profile_rows
-from ..prefilter.device import (NOT_PORTED, DevicePrefilter,
-                                bias_correction, query_triples)
+from ..prefilter.device import (DevicePrefilter, bias_correction,
+                                query_triples)
 from ..prefilter.index_io import index_path_for, load_index, load_index_meta
 from ..prefilter.kmer_generator import (KmerGenerator, ProfileKmerGenerator,
                                         SubKmerScores)
@@ -66,7 +68,8 @@ INT_MAX = 2147483647
 # a bin). Target-split mode adds per split its index build's and its
 # candidate stage's seconds (split_index_s, split_candidates_s, one entry a
 # split), the merge's seconds and the bytes spilled to <out>.split_tmp;
-# its stage-0 counts in prep_s, its device calls in flushes.
+# its stage-0 counts in prep_s, its device calls in flushes. taxon_queries
+# counts the queries that --taxon-list sent down the host matcher's route.
 STATS = {}
 RECORD_RESCORE = False
 # queries a chunk of target-split mode: one chunk's stage-0 and fragments
@@ -84,7 +87,7 @@ def reset_stats():
                  write_s=0.0, flushes=0, queries=0, host_oracle_queries=0,
                  hits=0, profile_bytes=0, rescore=[], split_index_s=[],
                  split_candidates_s=[], split_merge_s=0.0,
-                 split_spill_bytes=0)
+                 split_spill_bytes=0, taxon_queries=0)
 
 
 reset_stats()
@@ -234,10 +237,11 @@ def prefilter_kmer(par, command):
     target_is_profile = treader.base_type == dbt.DBTYPE_HMM_PROFILE
     query_is_nucl = qreader.base_type == dbt.DBTYPE_NUCLEOTIDES
     target_is_nucl = treader.base_type == dbt.DBTYPE_NUCLEOTIDES
-    if par.taxon_list:
-        raise NotImplementedError(f"prefilter --taxon-list {NOT_PORTED}")
+    taxon_mask = (_taxon_mask(par.taxon_list, tdb_path, treader)
+                   if par.taxon_list else None)
     n_splits = 0
-    if par.diag_score and not (target_is_profile or target_is_nucl):
+    if (par.diag_score and not (target_is_profile or target_is_nucl)
+            and taxon_mask is None):
         n_splits = par.split if par.split_mode in (0, 2) else 0
         if n_splits == 0 and par.split_mode in (0, 2):
             # setupSplit analogue (Prefiltering.cpp:287-310): pick the
@@ -320,7 +324,8 @@ def prefilter_kmer(par, command):
             par.min_ungapped_score, None,
             take_only_best_kmer=take_only_best, is_nucleotide=False)
         return _run_host(par, qreader, treader, qdb, matcher,
-                         query_is_profile, same_db, out_path, alpha)
+                         query_is_profile, same_db, out_path, alpha,
+                         taxon_mask)
     index_thr = 0 if (query_is_profile or query_is_nucl) else kmer_thr
     if n_splits > 1:
         return _run_device_splits(
@@ -357,11 +362,16 @@ def prefilter_kmer(par, command):
         take_only_best_kmer=take_only_best, is_nucleotide=target_is_nucl)
 
     # the batched device matcher serves diagonal scoring of protein targets;
-    # the host numpy matcher stays the oracle (and handles --diag-score 0
-    # and nucleotide targets, as in the JAX package)
-    if not par.diag_score or target_is_nucl:
+    # the host numpy matcher stays the oracle (and handles --diag-score 0,
+    # nucleotide targets and --taxon-list, as in the JAX package)
+    if taxon_mask is not None:
+        log.info(f"--taxon-list: host matcher route, "
+                 f"{int(taxon_mask.sum())} of {len(taxon_mask)} targets "
+                 f"allowed")
+    if not par.diag_score or target_is_nucl or taxon_mask is not None:
         return _run_host(par, qreader, treader, qdb, matcher,
-                         query_is_profile, same_db, out_path, alpha)
+                         query_is_profile, same_db, out_path, alpha,
+                         taxon_mask)
     dev = DevicePrefilter(
         table, seed, ungapped, kmer_thr, kmer_size, par.max_seqs,
         par.comp_bias_corr, par.comp_bias_corr_scale,
@@ -812,9 +822,23 @@ def _print_statistics(stats_acc, reslens, n_queries, max_results):
              "result lists")
 
 
+def _taxon_mask(taxon_list, tdb_path, treader):
+    """One flag per target: its taxon matches the --taxon-list expression
+    (QueryMatcherTaxonomyHook.h:40-58)."""
+    from ..taxonomy.ncbi import (MappingReader, NcbiTaxonomy,
+                                 TaxonomyExpression)
+    texpr = TaxonomyExpression(taxon_list,
+                               NcbiTaxonomy.open_taxonomy(tdb_path))
+    mapping = MappingReader(tdb_path)
+    return np.array([texpr.is_ancestor(mapping.lookup(
+        int(treader.get_db_key(tid)))) for tid in range(treader.size)],
+        dtype=bool)
+
+
 def _run_host(par, qreader, treader, qdb, matcher, query_is_profile,
-              same_db, out_path, alpha):
-    """Per-query host (numpy oracle) matching loop."""
+              same_db, out_path, alpha, taxon_mask=None):
+    """Per-query host (numpy oracle) matching loop; `taxon_mask` drops the
+    targets outside --taxon-list."""
     writer = DBWriter(out_path, dbt.DBTYPE_PREFILTER_RES)
     stats_acc = [0.0, 0, 0]
     reslens = []
@@ -827,11 +851,13 @@ def _run_host(par, qreader, treader, qdb, matcher, query_is_profile,
                 p, matcher.k, alpha, matcher.index.offsets_pat)
             hits = matcher.match(p.query_num.astype(np.int64), identity_id,
                                  diagonal_scoring=bool(par.diag_score),
-                                 rescore_profile=rescore, generator=gen)
+                                 rescore_profile=rescore,
+                                 allowed_mask=taxon_mask, generator=gen)
             q_len = float(p.length)
         else:
             hits = matcher.match(qdb.seq_num(qid), identity_id,
-                                 diagonal_scoring=bool(par.diag_score))
+                                 diagonal_scoring=bool(par.diag_score),
+                                 allowed_mask=taxon_mask)
             q_len = float(qreader.get_seq_len(qid))
         reslens.append(_write_hits(writer, par, treader, q_key, q_len,
                                    hits))
@@ -840,6 +866,8 @@ def _run_host(par, qreader, treader, qdb, matcher, query_is_profile,
         stats_acc[2] += matcher.stats.double_matches
     writer.close()
     STATS["queries"] += qreader.size
+    if taxon_mask is not None:
+        STATS["taxon_queries"] += qreader.size
     STATS["hits"] += sum(reslens)
     _print_statistics(stats_acc, reslens, qreader.size, par.max_seqs)
     return 0

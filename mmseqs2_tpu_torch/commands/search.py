@@ -10,9 +10,10 @@ src/workflow/Search.cpp (mode matrix :33-123, parameter wiring :544-629) +
 data/workflow/blastp.sh.
 --prefilter-mode: 0 k-mer index (default), 1 exhaustive ungapped, 2
 exhaustive (all-vs-all fake prefilter), mirroring Parameters::PREF_MODE_*;
-1 and 2 both run `ungappedprefilter`, as in the JAX package. --lca-search
-and --prefilter-mode 3 are not yet ported (see ROADMAP.md) and raise.
---alignment-mode 4 runs `rescorediagonal` in place of `align`.
+1 and 2 both run `ungappedprefilter`, as in the JAX package.
+--prefilter-mode 3 is not yet ported (see ROADMAP.md) and raises.
+--lca-search runs `lcaalign` in place of `align` (the taxonomy search);
+--alignment-mode 4 runs `rescorediagonal`.
 """
 
 import os
@@ -83,15 +84,13 @@ def search(par, command):
         return _search_iterative(par, wf, qdb, tdb, out_aln)
     if par.prefilter_mode not in PREF_COMMANDS:
         _not_ported(f"search --prefilter-mode {par.prefilter_mode}")
-    if par.lca_search:
-        _not_ported("search --lca-search (lcaalign)")
 
     sens_steps = par.sens_steps if par.was_set("start_sens") else 1
     target_sens = par.sensitivity
     start_sens = min(par.start_sens, target_sens)
     pref_cmd = PREF_COMMANDS[par.prefilter_mode]
 
-    align_module = "align"
+    align_module = "lcaalign" if par.lca_search else "align"
     # ALIGNMENT_MODE_UNGAPPED (4): replace align with rescorediagonal
     # --rescore-mode 2 (Search.cpp:261,314; map.sh path)
     if par.alignment_mode == 4:

@@ -151,8 +151,6 @@ def test_cluster_workflow_parity(tmp_path, on_cpu):
 QDB = GOLDEN / "qdb"
 
 UNPORTED = {
-    "cluster --cluster-reassign": ["cluster", QDB, "{out}", "{tmp}",
-                                   "--cluster-reassign", "1"],
     "cluster --switch-consensus-rep": [
         "cluster", QDB, "{out}", "{tmp}", "--cluster-version", "2",
         "--switch-consensus-rep", "1"],

@@ -274,10 +274,6 @@ PROFILE = GOLDEN / "it_profile_0"
 QDB = GOLDEN / "qdb"
 
 UNPORTED = {
-    "prefilter --taxon-list": ["prefilter", QDB, QDB, "{out}",
-                               "--taxon-list", "9606"],
-    "search --lca-search": ["search", QDB, QDB, "{out}", "{tmp}",
-                            "--lca-search", "1"],
     "search --prefilter-mode 3": ["search", QDB, QDB, "{out}", "{tmp}",
                                   "--prefilter-mode", "3"],
     "ungappedprefilter nucleotide": ["ungappedprefilter", NUCL, NUCL,
@@ -290,14 +286,8 @@ UNPORTED = {
                                           "{out}"],
     "makepaddedseqdb nucleotide": ["makepaddedseqdb", NUCL, "{out}"],
     "gpuserver nucleotide": ["gpuserver", NUCL],
-    "easy-search --greedy-best-hits": [
-        "easy-search", GOLDEN / "QUERY.fasta", GOLDEN / "QUERY.fasta",
-        "{out}", "{tmp}", "--greedy-best-hits", "1"],
     "convertalis html": ["convertalis", QDB, QDB, GOLDEN / "aln", "{out}",
                          "--format-mode", "3"],
-    "convertalis taxonomy columns": [
-        "convertalis", QDB, QDB, GOLDEN / "aln", "{out}", "--format-output",
-        "query,target,taxid"],
 }
 
 
@@ -317,21 +307,22 @@ def test_unported_branch_exits_1(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     env[ENV] = "cpu"
     r = subprocess.run(
-        [sys.executable, "-m", "mmseqs2_tpu_torch", "prefilter", str(QDB),
-         str(QDB), str(tmp_path / "pref"), "--taxon-list", "9606"],
+        [sys.executable, "-m", "mmseqs2_tpu_torch", "search", str(QDB),
+         str(QDB), str(tmp_path / "aln"), str(tmp_path / "stmp"),
+         "--prefilter-mode", "3"],
         env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 1
     assert "not yet ported (see ROADMAP.md)" in r.stderr
-    assert not (tmp_path / "pref.dbtype").exists()
+    assert not (tmp_path / "aln.dbtype").exists()
     r = subprocess.run(
-        [sys.executable, "-m", "mmseqs2_tpu_torch", "clusterupdate", "a", "b",
-         "c", "d", "e", "f"],
-        env=env, capture_output=True, text=True, timeout=300)
+        [sys.executable, "-m", "mmseqs2_tpu_torch", "fwbw", "a", "b", "c",
+         "d"], env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 1 and "not yet ported" in r.stderr
     r = subprocess.run(
-        [sys.executable, "-m", "mmseqs2_tpu_torch", "cluster", str(QDB),
-         str(tmp_path / "clu"), str(tmp_path / "tmp"), "--cluster-reassign",
-         "1"], env=env, capture_output=True, text=True, timeout=300)
+        [sys.executable, "-m", "mmseqs2_tpu_torch", "linclust", str(QDB),
+         str(tmp_path / "clu"), str(tmp_path / "tmp"),
+         "--switch-consensus-rep", "1"],
+        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 1
     assert "not yet ported (see ROADMAP.md)" in r.stderr
     assert not (tmp_path / "tmp").exists()
