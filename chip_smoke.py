@@ -84,8 +84,21 @@ caught. Phases, each printing lines before the last:
      `naln` and `--search-type 2` (translated: extractorfs, the prefilter
      and align over the ORFs on the card, offsetalignment) equals `taln`,
      entry by entry; the translated search launches diag_rescore and
-     sw_multi, the nucleotide one neither. The CPU sides of
-     phases 6, 7, 8 (started with phase 3), 9, 11 and 12 run in subprocesses
+     sw_multi, the nucleotide one neither. The MSA path: the MSA
+     and profile tools against the goldens of the JAX package's tests
+     (result2msa refmsa and refa3m, msa2profile refm2p and refm2p1,
+     profile2pssm, profile2consensus, profile2repseq, expandaln exp_aln,
+     exp_aln_rescore and efc, expand2profile exp_prof, filtera3m,
+     msa2result, result2msa --allow-deletion, convertca3m, profile2neff,
+     convertmsa, convertprofiledb, tsv2exprofiledb), each on its whole toy
+     input in a subprocess with the card selected (host code: they launch
+     nothing); and on the card `result2msa` of the toy's alignments with
+     their backtraces stripped (the realignment through sw_multi) and
+     `enrich` of three toy queries (one iteration), both equal byte for
+     byte to a CPU run beside them (these sides start with phase 3). The
+     CPU sides of
+     phases 6, 7, 8 (started with phase 3), 9, 11, 12 and 13 run in
+     subprocesses
      at the lowest priority (nice 19: the card's runs keep the host's
      cores) during this phase, which is correctness only: none of its
      seconds is
@@ -203,9 +216,23 @@ caught. Phases, each printing lines before the last:
      read-backs, lcaalign's pairs by wave, the assignments by rank and
      against the planted species; the first 32 queries' _lca.tsv and
      _tophit_aln lines equal to phase 4's CPU side's, by name;
+ 13. the MSA path at real size (phase_msa): `result2msa` of the first 250
+     queries of phase 5's prefilter lists (300 candidates a query, no
+     backtraces: 75,000 pairs aligned again through sw_multi, a block of
+     256 queries an align_batch), `msa2profile` of the first 16 of those
+     MSAs (a cut for time), `sequence2profile --context-lib` of the 250
+     queries with a 4,000-context library from the seed (B9, the context
+     product, torch.matmul on the card) and `result2profile` of the first
+     query's list (the align_query caller, reported), every kernel's
+     count set to 0 just before each: seconds, pairs, sw_multi launches
+     by form, read-backs, B1's and B9's device seconds (CUDA events), the
+     busy share; B9 timed at the path's padded length against its f32
+     bound; the first 16 queries' MSA and profile entries equal to phase
+     4's CPU side's, B9's probabilities to the CPU's within rtol 1e-5,
+     atol 1e-6;
 then one JSON line listing every kernel (nine entry points), with its
-launches on the clustering, iterative, translated and taxonomy paths
-beside those of the path that launches it;
+launches on the clustering, iterative, translated, taxonomy and MSA
+paths beside those of the path that launches it;
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA card or outside a checkout of the repository.
 """
@@ -2116,23 +2143,16 @@ def align_forms(st):
     return forms
 
 
-def phase_real_size(rng, n_targets=N_TARGETS, n_queries=1_000, max_seqs=300,
-                    n_check=16):
-    from mmseqs2_tpu_torch.align import aligner
-    from mmseqs2_tpu_torch.db import dbtype as dbt
-    from mmseqs2_tpu_torch.db.writer import DBWriter
-    from mmseqs2_tpu_torch.ops import sw
-
-    t0 = time.perf_counter()
-    qfam, tfam = make_scale_data(rng, n_targets, n_queries)
-    run_cli(["createdb", WORK / "queries.fasta", WORK / "qdb"])
-    run_cli(["createdb", WORK / "targets.fasta", WORK / "tdb"])
-    qkey, tkey = name_to_key(WORK / "qdb"), name_to_key(WORK / "tdb")
+def scale_pref(rng, qdb, tdb, qfam, tfam, max_seqs):
+    """Phase 5's synthetic prefilter lists, {query key: [target keys]}:
+    each query's family members first, then random targets, max_seqs in
+    all, drawn from rng (phase 13's CPU side replays the draws from a copy
+    of the generator as phase 5 finds it)."""
+    qkey, tkey = name_to_key(qdb), name_to_key(tdb)
     members = {}
     for i, f in enumerate(tfam):
         members.setdefault(f, []).append(tkey[f"T{i}"])
-    all_t = np.array([tkey[f"T{i}"] for i in range(n_targets)])
-    # prefilter DB: the query's family members first, then random targets
+    all_t = np.array([tkey[f"T{i}"] for i in range(len(tfam))])
     pref = {}
     for i, f in enumerate(qfam):
         cand = list(members.get(f, []))[:max_seqs]
@@ -2144,6 +2164,21 @@ def phase_real_size(rng, n_targets=N_TARGETS, n_queries=1_000, max_seqs=300,
                     seen.add(t)
                     cand.append(t)
         pref[qkey[f"Q{i}"]] = cand
+    return pref
+
+
+def phase_real_size(rng, n_targets=N_TARGETS, n_queries=1_000, max_seqs=300,
+                    n_check=16):
+    from mmseqs2_tpu_torch.align import aligner
+    from mmseqs2_tpu_torch.db import dbtype as dbt
+    from mmseqs2_tpu_torch.db.writer import DBWriter
+    from mmseqs2_tpu_torch.ops import sw
+
+    t0 = time.perf_counter()
+    qfam, tfam = make_scale_data(rng, n_targets, n_queries)
+    run_cli(["createdb", WORK / "queries.fasta", WORK / "qdb"])
+    run_cli(["createdb", WORK / "targets.fasta", WORK / "tdb"])
+    pref = scale_pref(rng, WORK / "qdb", WORK / "tdb", qfam, tfam, max_seqs)
     with DBWriter(str(WORK / "pref"), dbt.DBTYPE_PREFILTER_RES) as w:
         for k in sorted(pref):
             w.write(k, "".join(f"{t}\t0\t0\n" for t in pref[k]).encode())
@@ -3086,15 +3121,16 @@ def cluster_cpu_check(n_check=1_000, n_dup=100):
 
 
 @contextlib.contextmanager
-def cpu_side(label, script, args, out):
+def cpu_side(label, script, args, out, device="cpu"):
     """Runs `script` (python -c, argv `args`) with the CPU requested in a
     subprocess while the block runs, at the lowest priority (nice 19), so
     that the card's runs beside it keep the host's cores; leaving the block
     waits for it (sets out['cpu_s'], the seconds the script itself took)
     and raises with its stderr if it failed. The subprocess is killed if
-    the block raises."""
+    the block raises. device="cuda" selects the card instead (phase 4's
+    host-only MSA goldens, which launch nothing)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="4",
-               MMSEQS2_TPU_TORCH_DEVICE="cpu")
+               MMSEQS2_TPU_TORCH_DEVICE=device)
     stem = WORK / f"cpu_side_{label.replace(' ', '_')}"
     timed = (f"import os as _os, time as _t\n_os.nice(19)\n"
              f"_t0 = _t.perf_counter()\n{script}\n"
@@ -3142,8 +3178,9 @@ def cli_cpu_side(label, steps, out):
 @contextlib.contextmanager
 def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=2,
                          n_exhaustive=32, n_exhaustive_targets=500,
-                         n_gapped=8, n_targets=N_TARGETS, n_queries=1_000):
-    """The CPU sides of phases 6, 7, 9, 11 and 12: phase 5's FASTA files
+                         n_gapped=8, n_msa=16, n_targets=N_TARGETS,
+                         n_queries=1_000):
+    """The CPU sides of phases 6, 7, 9, 11, 12 and 13: phase 5's FASTA files
     made now, from a copy of the generator as phase 5 will find it (phase 5
     makes the same bytes again; its families and phase 12's taxonomy are
     kept in the yielded dict), and three subprocesses that run with the
@@ -3159,11 +3196,14 @@ def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=2,
     routes are held equal); and, on createdb's
     DBs of the two files (phase 5's bytes), `ungappedprefilter` of the
     first n_exhaustive queries against the first n_exhaustive_targets
-    targets and `gappedprefilter` of the first n_gapped against them.
+    targets and `gappedprefilter` of the first n_gapped against them; and
+    phase 13's (msa_cpu_run): `result2msa`, `msa2profile` and
+    `sequence2profile --context-lib` of the first n_msa queries.
     Leaving the block waits for them. Yields a dict with their results'
     paths and, once done, their seconds."""
     import copy
-    qfam, tfam = make_scale_data(copy.deepcopy(rng), n_targets, n_queries)
+    gen = copy.deepcopy(rng)
+    qfam, tfam = make_scale_data(gen, n_targets, n_queries)
     dump, mapping = write_taxonomy(tfam, WORK / "taxdump")
     records = (WORK / "queries.fasta").read_text().split(">")[1:]
 
@@ -3210,10 +3250,22 @@ def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=2,
              out["upref"], "--max-seqs", 1_000_000],
             ["gappedprefilter", w / "x_cpu_q8", out["t_chk"], out["gpref"],
              "-e", 10]]}
-    sides = {name: {} for name in steps}
+    # phase 13's CPU side: phase 5's prefilter lists replayed from the
+    # generator as phase 5 will find it, the first n_msa queries' MSAs,
+    # profiles and context profiles
+    spec = WORK / "msa_cpu_spec.json"
+    spec.write_text(json.dumps(dict(
+        state=gen.bit_generator.state, qfam=[int(f) for f in qfam],
+        tfam=[int(f) for f in tfam], max_seqs=MSA_MAX_SEQS, n=n_msa,
+        crf=str(context_library()))))
+    out.update(msa=w / "msa_cpu", msa_profile=w / "msa_cpu_prof",
+               s2p=w / "s2p_cpu", n_msa=n_msa)
+    sides = {name: {} for name in [*steps, "msa"]}
     with contextlib.ExitStack() as stack:
         for name, st in steps.items():
             stack.enter_context(cli_cpu_side(name, st, sides[name]))
+        stack.enter_context(cpu_side("msa", MSA_CPU_CHECK, [spec],
+                                     sides["msa"]))
         yield out
     out["cpu_s"] = {name: side["cpu_s"] for name, side in sides.items()}
     log(f"real-size CPU sides: easy-search of the first {n_easy} queries "
@@ -3223,7 +3275,9 @@ def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=2,
         f"in {out['cpu_s']['iterative search']:.2f} s, ungappedprefilter of "
         f"the first {n_exhaustive} x {n_exhaustive_targets} and "
         f"gappedprefilter of the first {n_gapped} in "
-        f"{out['cpu_s']['exhaustive prefilter']:.2f} s")
+        f"{out['cpu_s']['exhaustive prefilter']:.2f} s, result2msa, "
+        f"msa2profile and sequence2profile of the first {n_msa} in "
+        f"{out['cpu_s']['msa']:.2f} s")
 
 
 def iteration_steps(steps, it, last, result="it_res"):
@@ -3712,6 +3766,518 @@ def phase_taxonomy(check, n_queries):
     return res
 
 
+# -- phase 4's MSA goldens ----------------------------------------------------
+
+def msa_test_helpers():
+    """tests/test_torch_msa.py's input helpers (build_ca3m, enrich_inputs,
+    sub_results, first_entries), shared with the CPU tests."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import test_torch_msa
+    return test_torch_msa
+
+
+def msa_host_goldens():
+    """The MSA and profile tools against the reference goldens that the
+    JAX package's tests use, every one on the toy's whole input (phase 4's
+    host-only side: these commands launch nothing). Writes each golden's
+    verdict and seconds to WORK/msa_host_goldens.json and raises if any
+    differs."""
+    from mmseqs2_tpu_torch.db import dbtype as dbt
+    h = msa_test_helpers()
+    g, util, out = GOLDEN.parent, GOLDEN / "util", WORK / "msa_goldens"
+    out.mkdir(exist_ok=True)
+    for suf in (".tsv", "_h.tsv", "_seq.tsv", "_aln.tsv"):
+        shutil.copy(g / "convert" / f"exin{suf}", out / f"exin{suf}")
+    ca3m = h.build_ca3m(out / "ca3m")
+
+    def db(path, sufs=("", ".index")):
+        return [pathlib.Path(f"{path}{s}").read_bytes() for s in sufs]
+
+    cases = [
+        ("result2msa (refmsa)", ["result2msa", GOLDEN / "qdb",
+                                 GOLDEN / "qdb", GOLDEN / "it_aln_0",
+                                 out / "msa"],
+         lambda: db(out / "msa") == db(util / "refmsa")),
+        ("result2msa a3m (refa3m)",
+         ["result2msa", GOLDEN / "qdb", GOLDEN / "qdb", GOLDEN / "it_aln_0",
+          out / "a3m", "--msa-format-mode", 5],
+         lambda: db(out / "a3m") == db(util / "refa3m"))]
+    for mode, gold in ((0, "refm2p"), (1, "refm2p1")):
+        cases.append((f"msa2profile --match-mode {mode} ({gold})",
+                      ["msa2profile", util / "refmsa", out / gold,
+                       "--match-mode", mode],
+                      lambda gold=gold: db(out / gold, ("", ".index",
+                                                        ".dbtype"))
+                      == db(util / gold, ("", ".index", ".dbtype"))))
+    cases += [
+        ("profile2pssm (refpssm.tsv)",
+         ["profile2pssm", GOLDEN / "it_profile_0", out / "pssm.tsv"],
+         lambda: db(out / "pssm.tsv", ("",)) == db(util / "refpssm.tsv",
+                                                   ("",)))]
+    for cmd, gold in (("profile2consensus", "refcons"),
+                      ("profile2repseq", "refrep")):
+        cases.append((f"{cmd} ({gold})", [cmd, GOLDEN / "it_profile_0",
+                                          out / gold],
+                      lambda gold=gold: db(out / gold) == db(util / gold)))
+    for extra, gold in ((["--expansion-mode", 0], GOLDEN / "exp_aln"),
+                        (["--expansion-mode", 1], GOLDEN / "exp_aln_rescore"),
+                        (["--expand-filter-clusters", 1],
+                         g / "efc" / "refefc")):
+        cases.append((f"expandaln {' '.join(map(str, extra))} ({gold.name})",
+                      ["expandaln", GOLDEN / "qdb", GOLDEN / "qdb",
+                       GOLDEN / "aln", GOLDEN / "aln", out / gold.name,
+                       *extra],
+                      lambda gold=gold: entries(out / gold.name)
+                      == entries(gold)))
+    cases += [
+        ("expand2profile (exp_prof)",
+         ["expand2profile", GOLDEN / "qdb", GOLDEN / "qdb", GOLDEN / "aln",
+          GOLDEN / "aln", out / "exp_prof"],
+         lambda: entries(out / "exp_prof") == entries(GOLDEN / "exp_prof")),
+        ("filtera3m (bigfilt.a3m)",
+         ["filtera3m", g / "msares" / "big.a3m", out / "filt.a3m",
+          "--max-seq-id", 0.9, "--diff", 5],
+         lambda: db(out / "filt.a3m", ("",))
+         == db(g / "msares" / "bigfilt.a3m", ("",))),
+        ("result2msa of aln (for msa2result)",
+         ["result2msa", GOLDEN / "qdb", GOLDEN / "qdb", GOLDEN / "aln",
+          out / "aln_msa"], lambda: True),
+        ("msa2result --match-mode 1 (m2r_*)",
+         ["msa2result", out / "aln_msa", out / "m2r_seq", out / "m2r_res",
+          "--match-mode", 1],
+         lambda: all(db(out / n) == db(g / "msares" / n)
+                     for n in ("m2r_res", "m2r_seq", "m2r_seq_h")))]
+    for mode, gold in ((2, "refdeld"), (5, "refdeld5")):
+        d = g / "msadel"
+        cases.append((f"result2msa --allow-deletion, mode {mode} ({gold})",
+                      ["result2msa", d / "dqd", d / "dtd", d / "daln",
+                       out / gold, "--msa-format-mode", mode,
+                       "--allow-deletion"],
+                      lambda gold=gold, d=d: db(out / gold, ("",))
+                      == db(d / gold, ("",))))
+    conv = g / "convert"
+    cases += [
+        ("convertca3m (convca3m)", ["convertca3m", ca3m, out / "convca3m"],
+         lambda: db(out / "convca3m") == db(g / "domain" / "convca3m")),
+        ("profile2neff (neff.txt)",
+         ["profile2neff", g / "tprofile" / "profdb", out / "neff.txt"],
+         lambda: db(out / "neff.txt", ("",))
+         == db(g / "dbops" / "neff.txt", ("",))),
+        ("convertmsa (refmsa)", ["convertmsa", conv / "test.sto",
+                                 out / "cmsa"],
+         lambda: db(out / "cmsa") == db(conv / "refmsa")),
+        ("convertmsa --identifier-field 0 (refmsa0)",
+         ["convertmsa", conv / "test.sto", out / "cmsa0",
+          "--identifier-field", 0],
+         lambda: db(out / "cmsa0") == db(conv / "refmsa0")),
+        ("convertprofiledb (refprof)",
+         ["convertprofiledb", conv / "hhmdb", out / "cprof"],
+         lambda: db(out / "cprof") == db(conv / "refprof")
+         and db(out / "cprof_h") == db(conv / "refprof_h")
+         and db(out / "cprof", (".dbtype",))
+         == db(conv / "refprof", (".dbtype",))),
+        ("tsv2exprofiledb (refex*)", ["tsv2exprofiledb", out / "exin",
+                                      out / "ex"],
+         lambda: all(db(f"{out / 'ex'}{suf}") == db(conv / f"refex{suf}")
+                     for suf in ("", "_aln", "_seq", "_seq_h")))]
+    verdicts = []
+    import importlib.util
+    if importlib.util.find_spec("zstandard") is None:
+        # its golden is compressed, and the DB writer compresses with
+        # zstandard, which this machine lacks; tests/test_torch_convert.py
+        # holds it on the CPU
+        cases = [c for c in cases if c[1][0] != "tsv2exprofiledb"]
+        verdicts.append(dict(golden="tsv2exprofiledb (refex*)", s=0.0,
+                             equal=None, not_run="no zstandard module"))
+    for name, args, same in cases:
+        t0 = time.perf_counter()
+        run_cli(args)
+        verdicts.append(dict(golden=name, s=time.perf_counter() - t0,
+                             equal=bool(same())))
+    (WORK / "msa_host_goldens.json").write_text(json.dumps(verdicts))
+    bad = [v["golden"] for v in verdicts if v["equal"] is False]
+    if bad:
+        raise AssertionError(f"MSA goldens differ: {bad}")
+
+
+MSA_HOST_GOLDENS = r"""
+from chip_smoke import msa_host_goldens
+msa_host_goldens()
+"""
+
+
+@contextlib.contextmanager
+def msa_golden_sides():
+    """Phase 4's MSA path: its inputs, and two subprocesses at nice 19 while
+    the block runs (phases 3 and 4: none of their seconds is a metric, and
+    phase 3's kernel times are the card's own, from CUDA events):
+    msa_host_goldens with the card selected (host code only), and with the
+    CPU requested the runs that phase_golden_msa makes on the card:
+    `result2msa` of the toy's alignments with their backtraces stripped
+    (every hit aligned again) and `enrich` of three toy queries (one
+    iteration; tests/test_torch_msa.py's inputs). Yields a dict of the
+    inputs and the CPU side's outputs; leaving the block waits for both
+    sides."""
+    h = msa_test_helpers()
+    w = WORK / "msa_golden"
+    w.mkdir(exist_ok=True)
+    strip = h.sub_results(GOLDEN / "aln", sorted(entries(GOLDEN / "aln")),
+                          w / "strip", strip=True)
+    q, tprof = h.enrich_inputs(w)
+    out = dict(strip=strip, q=q, tprof=tprof, strip_cpu=w / "strip_cpu",
+               enrich_cpu=w / "enrich_cpu")
+    steps = [["result2msa", GOLDEN / "qdb", GOLDEN / "qdb", strip,
+              out["strip_cpu"]],
+             ["enrich", q, GOLDEN / "qdb", tprof, GOLDEN / "aln",
+              out["enrich_cpu"], w / "enrich_cpu_tmp", "--num-iterations",
+              1]]
+    host = {}
+    with cli_cpu_side("msa goldens", steps, out), \
+            cpu_side("msa host goldens", MSA_HOST_GOLDENS, [], host,
+                     device="cuda"):
+        yield out
+    out["host_s"] = host["cpu_s"]
+    for v in json.loads((WORK / "msa_host_goldens.json").read_text()):
+        verdict = ("not run: " + v["not_run"] if "not_run" in v
+                   else "equal" if v["equal"] else "DIFFERS")
+        log(f"golden {v['golden']} (host code, the card selected): "
+            f"{verdict}, {v['s']:.2f} s")
+
+
+def phase_golden_msa(side):
+    """On the card, beside msa_golden_sides: `result2msa` of the toy's
+    alignments with their backtraces stripped (the realignment through
+    sw_multi, blocks of 256 queries) and `enrich` of three toy queries, one
+    iteration (search against the profile targets, result2profile, the
+    profile prefilter and align, expandaln), each with its launches;
+    msa_golden_check holds them to the CPU side once it is done."""
+    from mmseqs2_tpu_torch.commands import msa_tools
+    wrappers = kernel_wrappers()
+    w = WORK / "msa_golden"
+
+    def launched(before):
+        return {n: v.launches - before[n] for n, v in wrappers.items()
+                if v.launches != before[n]}
+
+    res = {}
+    before = {n: v.launches for n, v in wrappers.items()}
+    msa_tools.reset_stats()
+    t0 = time.perf_counter()
+    run_cli(["result2msa", GOLDEN / "qdb", GOLDEN / "qdb", side["strip"],
+             w / "strip_card"])
+    res["result2msa"] = dict(s=time.perf_counter() - t0,
+                             launches=launched(before),
+                             stats=dict(msa_tools.STATS))
+    if not res["result2msa"]["launches"].get("sw_multi"):
+        raise AssertionError("result2msa of the stripped alignments "
+                             "launched no sw_multi kernel")
+    before = {n: v.launches for n, v in wrappers.items()}
+    t0 = time.perf_counter()
+    with step_record() as steps:
+        run_cli(["enrich", side["q"], GOLDEN / "qdb", side["tprof"],
+                 GOLDEN / "aln", w / "enrich_card", w / "enrich_card_tmp",
+                 "--num-iterations", 1])
+    res["enrich"] = dict(
+        s=time.perf_counter() - t0, launches=launched(before),
+        steps=[dict((k, r[k]) for k in ("command", "out", "s", "sw_multi",
+                                        "diag_rescore",
+                                        "diag_rescore_profile",
+                                        "readbacks")) for r in steps])
+    if not res["enrich"]["launches"].get("sw_multi"):
+        raise AssertionError("enrich launched no sw_multi kernel")
+    return res
+
+
+def msa_golden_check(side, res):
+    """phase_golden_msa's outputs against the CPU side's, byte for byte."""
+    w = WORK / "msa_golden"
+    for name, card, cpu in (("result2msa, backtraces stripped",
+                             w / "strip_card", side["strip_cpu"]),
+                            ("enrich, 3 queries, 1 iteration",
+                             w / "enrich_card", side["enrich_cpu"])):
+        differ = [suf for suf in ("", ".index", ".dbtype")
+                  if pathlib.Path(f"{card}{suf}").read_bytes()
+                  != pathlib.Path(f"{cpu}{suf}").read_bytes()]
+        key = name.split(",")[0]
+        log(f"golden {name}: card and CPU "
+            f"{'differ in ' + str(differ) if differ else 'equal byte for byte'}"
+            f", card {res[key]['s']:.2f} s, launches "
+            f"{json.dumps(res[key]['launches'])}")
+        if differ or not entries(card):
+            raise AssertionError(f"{name}: the card and the CPU differ")
+    log("golden msa record " + json.dumps(res))
+    log(f"MSA goldens' sides: CPU {side['cpu_s']:.2f} s, host-only goldens "
+        f"{side['host_s']:.2f} s")
+
+
+# -- phase 13: the MSA path ---------------------------------------------------
+
+# phase 5's prefilter lists: candidates a query
+MSA_MAX_SEQS = 300
+# the context library of phase 13's sequence2profile (from its own
+# generator: the reference's K4000.crf is not in the repository)
+N_CONTEXTS = 4_000
+CONTEXT_WLEN = 13
+# H100 SXM, published: 67 TFLOP/s in float32 outside the tensor cores (the
+# context-score product runs with TF32 off)
+F32_FLOPS_PER_S = 67e12
+
+
+def context_library(path=None):
+    """N_CONTEXTS contexts of window CONTEXT_WLEN drawn from the seed,
+    written as a CRF file (profile/cs.dump_crf, weights to 1/1000) under
+    WORK; returns its path. Written once: phase 4 writes it for the CPU
+    side, phase 13 reads it."""
+    path = pathlib.Path(path or WORK / "k4000.crf")
+    if path.exists():
+        return path
+    from mmseqs2_tpu_torch.profile import cs
+    rng = np.random.default_rng(SEED + 16)
+    w = (rng.normal(size=(N_CONTEXTS, CONTEXT_WLEN, 21)) * 0.5).astype(
+        np.float32)
+    w[:, :, 20] = 0.0
+    lib = cs.ContextLibrary(w, rng.normal(size=N_CONTEXTS).astype(np.float32),
+                            rng.normal(size=(N_CONTEXTS, 20)))
+    path.write_text(cs.dump_crf(lib))
+    return path
+
+
+def msa_inputs(qdb, tdb, pref, n, prefix):
+    """The first n queries (by key) of a prefilter DB of phase 5's lists:
+    their prefilter DB and their query sub-DB (for sequence2profile)."""
+    from mmseqs2_tpu_torch.db import dbtype as dbt
+    from mmseqs2_tpu_torch.db.writer import DBWriter
+    keys = sorted(pref)[:n]
+    with DBWriter(f"{prefix}_pref", dbt.DBTYPE_PREFILTER_RES) as w:
+        for k in keys:
+            w.write(k, "".join(f"{t}\t0\t0\n" for t in pref[k]).encode())
+    pathlib.Path(f"{prefix}_keys").write_text(
+        "".join(f"{k}\n" for k in keys))
+    run_cli(["createsubdb", f"{prefix}_keys", qdb, f"{prefix}_q"])
+    return pathlib.Path(f"{prefix}_pref"), pathlib.Path(f"{prefix}_q")
+
+
+def msa_cpu_run(spec_path):
+    """Phase 13's CPU side (phase 4, a subprocess with the CPU requested):
+    createdb of phase 5's FASTA files, its prefilter lists replayed from the
+    generator's state as phase 5 finds it, then `result2msa`, `msa2profile`
+    and `sequence2profile --context-lib` of the first n queries."""
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    q, t = WORK / "msa_cpu_qdb", WORK / "msa_cpu_tdb"
+    run_cli(["createdb", WORK / "queries.fasta", q], cpu=True)
+    run_cli(["createdb", WORK / "targets.fasta", t], cpu=True)
+    rng = np.random.default_rng()
+    rng.bit_generator.state = spec["state"]
+    pref = scale_pref(rng, q, t, spec["qfam"], spec["tfam"],
+                      spec["max_seqs"])
+    sub_pref, sub_q = msa_inputs(q, t, pref, spec["n"], WORK / "msa_cpu")
+    run_cli(["result2msa", q, t, sub_pref, WORK / "msa_cpu"], cpu=True)
+    run_cli(["msa2profile", WORK / "msa_cpu", WORK / "msa_cpu_prof"],
+            cpu=True)
+    run_cli(["sequence2profile", sub_q, WORK / "s2p_cpu", "--context-lib",
+             spec["crf"]], cpu=True)
+
+
+MSA_CPU_CHECK = r"""
+import sys
+from chip_smoke import msa_cpu_run
+msa_cpu_run(sys.argv[1])
+"""
+
+
+def b9_record(lib, lengths, reps=20):
+    """B9, the context-score product, at the path's most common padded
+    length: device ms (CUDA events, the card held busy while the host
+    enqueues), the numpy product's ms on the host (the plain version: the
+    product of a library under 512 contexts), and the bound: the f32
+    FLOPs (2 L K wlen*21 and the bias) at F32_FLOPS_PER_S, or the bytes (X,
+    W^T and the bias read once, the scores written once) at
+    HBM_BYTES_PER_S, whichever takes longer. `lengths` are the run's query
+    lengths."""
+    import collections
+    import torch
+    from mmseqs2_tpu_torch.profile import cs
+    buckets = collections.Counter()
+    for L in lengths:
+        Lp = 64
+        while Lp < L:
+            Lp *= 2
+        buckets[Lp] += 1
+    Lp = buckets.most_common(1)[0][0]
+    dev = torch.device("cuda")
+    Wt, b = cs._device_weights(lib, dev)
+    K, D = lib.size, lib.wlen * 21
+    rng = np.random.default_rng(SEED + 17)
+    X = np.zeros((Lp, lib.wlen, 21), np.float32)
+    X[np.arange(Lp)[:, None], np.arange(lib.wlen)[None, :],
+      rng.integers(0, 21, size=(Lp, lib.wlen))] = 1.0
+    X = X.reshape(Lp, D)
+    x = torch.from_numpy(X).to(dev)
+    ms = device_ms(lambda: torch.matmul(x, Wt) + b[None, :], reps)
+    got = (torch.matmul(x, Wt) + b[None, :]).cpu().numpy()
+    Wf = lib.weights.reshape(K, D)
+    t0 = time.perf_counter()
+    want = X @ Wf.T + lib.biases[None, :]
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    flops = 2 * Lp * D * K + Lp * K
+    nbytes = (Lp * D + D * K + K + Lp * K) * 4
+    ops_s, bytes_s = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(
+        name="context_scores (B9)", route="torch.matmul",
+        source="mmseqs2_tpu_torch/profile/cs.py",
+        replaces="mmseqs2_tpu/profile/cs.py:166",
+        at=f"L {Lp} (padded; {buckets[Lp]} of {len(lengths)} queries) x "
+           f"{D} x K {K}, f32", ms=ms, plain_ms=plain_ms,
+        bound_ms=max(ops_s, bytes_s) * 1e3,
+        bound_by="operations" if ops_s >= bytes_s else "bytes",
+        gflops_per_s=flops / ms / 1e6,
+        max_abs_err=float(np.abs(got - want).max()),
+        buckets={str(k): v for k, v in sorted(buckets.items())})
+
+
+def phase_msa(check, n_queries=250, n_profile=16, n_realign=1):
+    """The MSA path at real size (cell msa_250x50k), on phase 5's 50,000
+    targets and prefilter lists (300 candidates a query, no backtraces),
+    every kernel's count set to 0 just before each step and read just
+    after: (a) `result2msa` of the first n_queries queries (every pair
+    aligned again through Aligner.align_batch, a block of 256 queries a
+    batch: sw_multi on the card); (b) `msa2profile` of the first n_profile
+    of those MSAs (a cut for time: the profile stack's host code takes
+    about half a second an MSA of 301 rows); (c) `sequence2profile
+    --context-lib` of the same n_queries queries with N_CONTEXTS contexts
+    (B9, the context-score product, on the card); and, reported and not
+    redesigned, (d) `result2profile` of the first n_realign queries'
+    lists, whose key-only hits go through Aligner.align_query a query.
+    Prints for each step its seconds, pairs aligned, sw_multi launches by
+    form, read-backs, B1's device seconds (CUDA events), B9's products and
+    device ms, and the card's busy share (kernel seconds over the wall).
+    The first check['n_msa'] queries' MSA and profile entries must equal
+    the CPU side's (phase 4), and B9's probabilities on the card the
+    CPU's within rtol 1e-5, atol 1e-6 (the tests' tolerance)."""
+    import torch
+    from mmseqs2_tpu_torch.align import aligner
+    from mmseqs2_tpu_torch.commands import msa_tools
+    from mmseqs2_tpu_torch.db import dbtype as dbt
+    from mmseqs2_tpu_torch.db.reader import DBReader
+    from mmseqs2_tpu_torch.ops import sw
+    from mmseqs2_tpu_torch.profile import cs
+    qdb, tdb = WORK / "qdb", WORK / "tdb"
+    with DBReader(str(WORK / "pref")) as r:
+        pref = {r.get_db_key(i): [int(line.split(b"\t")[0]) for line in
+                                  r.get_data(i).split(b"\n") if line]
+                for i in range(r.size)}
+    sub_pref, sub_q = msa_inputs(qdb, tdb, pref, n_queries, WORK / "msa")
+    crf = context_library()
+    wrappers = kernel_wrappers()
+
+    def step(args):
+        """One command on the card, counts set to 0 just before."""
+        aligner.reset_stats()
+        msa_tools.reset_stats()
+        cs.reset_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        sw.sw_multi.form_launches = dict.fromkeys(sw.sw_multi.form_launches,
+                                                  0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_cli(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = aligner.STATS
+        kernel_s = st["kernel_ms"] / 1e3 + cs.STATS["product_ms"] / 1e3
+        return dict(
+            s=wall, pairs=st["pairs"], rev_pairs=st["rev_pairs"],
+            sw_multi=sw.sw_multi.launches,
+            sw_multi_by_form=dict(sw.sw_multi.form_launches),
+            readbacks=st["readbacks"], b1_device_s=st["kernel_ms"] / 1e3,
+            scan_host_s=st["scan_s"], backtrace_s=st["backtrace_s"],
+            b9_products=cs.STATS["products"],
+            b9_device_s=cs.STATS["product_ms"] / 1e3,
+            busy_share=kernel_s / wall,
+            others={n: w.launches for n, w in wrappers.items()
+                    if w.launches and n != "sw_multi"})
+
+    res = dict(card=card_line(), queries=n_queries, targets=N_TARGETS,
+               candidates=MSA_MAX_SEQS)
+    res["result2msa"] = step(["result2msa", qdb, tdb, sub_pref,
+                              WORK / "msa"])
+    res["result2msa"].update(msa_stats=dict(msa_tools.STATS),
+                             pairs_per_s=res["result2msa"]["pairs"]
+                             / res["result2msa"]["s"])
+    if (res["result2msa"]["pairs"] != n_queries * MSA_MAX_SEQS
+            or res["result2msa"]["sw_multi"] <= 0):
+        raise AssertionError(f"result2msa realigned "
+                             f"{res['result2msa']['pairs']} pairs with "
+                             f"{res['result2msa']['sw_multi']} sw_multi "
+                             f"launches")
+    msa_n = msa_test_helpers().first_entries(
+        WORK / "msa", n_profile, WORK / "msa_n", dbt.DBTYPE_MSA_DB)
+    res["msa2profile"] = step(["msa2profile", msa_n, WORK / "msa_prof"])
+    res["msa2profile"]["msas"] = n_profile
+    res["sequence2profile"] = step(["sequence2profile", sub_q, WORK / "s2p",
+                                    "--context-lib", crf])
+    if res["sequence2profile"]["b9_products"] != n_queries:
+        raise AssertionError("sequence2profile ran "
+                             f"{res['sequence2profile']['b9_products']} "
+                             f"context products for {n_queries} queries")
+    rp_pref, _ = msa_inputs(qdb, tdb, pref, n_realign, WORK / "msa_rp")
+    res["result2profile"] = step(["result2profile", qdb, tdb, rp_pref,
+                                  WORK / "msa_rp_prof"])
+    res["result2profile"]["queries"] = n_realign
+    res["wall_s"] = sum(res[k]["s"] for k in (
+        "result2msa", "msa2profile", "sequence2profile"))
+
+    # B9 at the path's shape; its probabilities on the card and the CPU
+    lib = cs.load_crf(crf.read_text())
+    with DBReader(str(sub_q)) as r:
+        lengths = [r.get_seq_len(i) for i in range(r.size)]
+    res["b9"] = b9_record(lib, lengths)
+    res["b9"]["launches"] = res["sequence2profile"]["b9_products"]
+    from mmseqs2_tpu_torch.commands.common import get_sub_mat
+    from mmseqs2_tpu_torch.params import Params
+    enc = get_sub_mat(Params()).make_aa2num_table()
+    worst = 0.0
+    env = "MMSEQS2_TPU_TORCH_DEVICE"
+    with DBReader(str(sub_q)) as r:
+        for i in range(check["n_msa"]):
+            q_num = enc[np.frombuffer(r.get_seq(i), np.uint8)].astype(
+                np.int64)
+            card = cs.compute_sequence_cs(q_num, lib)
+            old = os.environ.get(env)
+            os.environ[env] = "cpu"
+            try:
+                cpu = cs.compute_sequence_cs(q_num, lib)
+            finally:
+                os.environ[env] = old
+            np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=1e-6)
+            worst = max(worst, float(np.abs(card - cpu).max()))
+    res["b9"]["probabilities_max_abs_err"] = worst
+    log("msa " + json.dumps(res))
+
+    # the CPU side's first queries, entry by entry
+    for name, ours, cpu in (
+            ("result2msa", WORK / "msa", check["msa"]),
+            ("msa2profile", WORK / "msa_prof", check["msa_profile"]),
+            ("sequence2profile", WORK / "s2p", check["s2p"])):
+        got, want = entries(ours), entries(cpu)
+        keys = sorted(want)[:check["n_msa"]]
+        bad = [k for k in keys if got.get(k) != want[k]]
+        log(f"msa CPU cross-check, {name}: first {len(keys)} queries, "
+            f"{len(bad)} differ")
+        if name == "sequence2profile":
+            # the profile bytes round the probabilities (held above within
+            # the tolerance), so a byte may move; counted, not required
+            res["b9"]["profile_entries_equal"] = len(keys) - len(bad)
+            continue
+        if bad or len(keys) != check["n_msa"]:
+            raise AssertionError(f"card and CPU {name} differ for queries "
+                                 f"{bad[:10]}")
+    return res
+
+
 def main():
     try:
         import torch
@@ -3755,13 +4321,15 @@ def main():
     phase_done(2)
 
     # 3. kernels against their plain versions, while phase 8's CPU side
-    # (its own data) starts; 4. golden parity on the card, while the CPU
+    # (its own data) and phase 4's MSA goldens' sides (toy data, host code
+    # only) start; 4. golden parity on the card, while the CPU
     # sides of phases 6, 7 and 9 run too (on phase 5's data, made now from
     # a copy of the generator as phase 5 will find it: the server's
     # profile, the phase's one draw, is drawn first); leaving the block
     # waits for every side
     with contextlib.ExitStack() as sides:
         check = sides.enter_context(cluster_cpu_check())
+        msa_side = sides.enter_context(msa_golden_sides())
         rows = phase_kernels(rng)
         rrows = phase_rescore_kernel(rng)
         xrows = phase_exhaustive_kernels(rng)
@@ -3777,6 +4345,8 @@ def main():
         phase_golden_cluster()
         phase_golden_profile()
         nucl_launches = phase_golden_nucl()
+        msa_golden = phase_golden_msa(msa_side)
+    msa_golden_check(msa_side, msa_golden)
     phase_done(4)
 
     # 5. the align stage alone at real size (its traced rerun went when
@@ -3814,6 +4384,11 @@ def main():
     # script passed 950 s with 1,000 on a slow host)
     tax = phase_taxonomy(rcheck, n_queries=500)
     phase_done(12)
+
+    # 13. the MSA path at real size: result2msa's realignment (B1),
+    # msa2profile, sequence2profile with a 4,000-context library (B9)
+    msa = phase_msa(rcheck)
+    phase_done(13)
 
     # kernels line; launches are those of the run of the path that
     # launches the kernel: easy-search, ungappedprefilter, the server's
@@ -3857,7 +4432,10 @@ def main():
         launches_translated=tr["launches"]["sw_multi"],
         launches_translated_golden=nucl_launches["sw_multi"],
         launches_taxonomy=tax["launches"]["sw_multi"],
-        launches_taxonomy_lcaalign=tax["lcaalign"]["sw_multi"]),
+        launches_taxonomy_lcaalign=tax["lcaalign"]["sw_multi"],
+        launches_msa=msa["result2msa"]["sw_multi"],
+        launches_msa_golden=msa_golden["result2msa"]["launches"][
+            "sw_multi"]),
         dict(
         name="diag_rescore", route="cuda",
         source="mmseqs2_tpu_torch/csrc/rescore.cu",

@@ -3,9 +3,11 @@ reduced-alphabet hash), `recoverlongestorf` and `diffseqdbs`.
 
 Port of mmseqs2_tpu/commands/misc_tools.py, of which the port needs the
 command that the linclust workflow calls (--clust-hash), the one that the
-taxonomy workflow's contig route calls (recoverlongestorf) and the one that
-clusterupdate calls (diffseqdbs). Reference src/util/clusthash.cpp,
-recoverlongestorf.cpp and diffseqdbs.cpp. A nucleotide DB hashes each
+taxonomy workflow's contig route calls (recoverlongestorf), the one that
+clusterupdate calls (diffseqdbs), and the UniProt header summary of
+`result2msa --msa-format-mode 3` (_uniprot_summarize). Reference
+src/util/clusthash.cpp, recoverlongestorf.cpp, diffseqdbs.cpp and
+summarizeheaders.cpp. A nucleotide DB hashes each
 sequence and its reverse complement and keeps the smaller hash.
 """
 
@@ -17,6 +19,117 @@ from ..db.writer import DBWriter
 from .nucl_tools import COMPLEMENT, parse_orf_header
 
 U64 = (1 << 64) - 1
+
+
+_UNINFORMATIVE = ("hypothetical", "unknown", "putative", "predicted",
+                  "unnamed", "probable", "partial", "possible",
+                  "uncharacterized", "fragment")
+
+
+def _libstdcxx_make_heap(a, less):
+    """Reproduce libstdc++ std::make_heap element layout (the reference
+    iterates the heapified vector in storage order, so layout matters)."""
+    n = len(a)
+    if n < 2:
+        return
+    parent = (n - 2) // 2
+    while True:
+        value = a[parent]
+        # __adjust_heap
+        hole = parent
+        second = hole
+        while second < (n - 1) // 2:
+            second = 2 * (second + 1)
+            if less(a[second], a[second - 1]):
+                second -= 1
+            a[hole] = a[second]
+            hole = second
+        if n % 2 == 0 and second == (n - 2) // 2:
+            second = 2 * (second + 1)
+            a[hole] = a[second - 1]
+            hole = second - 1
+        # __push_heap
+        top = parent
+        while hole > top and less(a[(hole - 1) // 2], value):
+            a[hole] = a[(hole - 1) // 2]
+            hole = (hole - 1) // 2
+        a[hole] = value
+        if parent == 0:
+            return
+        parent -= 1
+
+
+def _uniprot_summarize(headers):
+    queue = []  # (priority, identifier, proteinName)
+    rep = ""
+    for hi, header in enumerate(headers):
+        end = header.find("|")
+        if end < 0:
+            continue
+        db_type = header[:end]
+        start = end + 1
+        end = header.find("|", start)
+        if end < 0:
+            continue
+        ident = header[start:end]
+        if hi == 0:
+            rep = ident
+        start = header.find(" ", end)
+        if start < 0:
+            continue
+        start += 1
+        end = header.find(" OS=", start)
+        if end < 0:
+            continue
+        protein = header[start:end]
+        start = header.find("=", end)
+        if start < 0:
+            continue
+        end2 = header.find(" GN=", start + 1)
+        if end2 < 0:
+            end2 = header.find(" PE=", start + 1)
+            if end2 < 0:
+                continue
+        start = header.find("PE=", end2)
+        if start < 0:
+            continue
+        start += 3
+        end2 = header.find(" SV=", start)
+        if end2 < 0:
+            continue
+        try:
+            existence = int(header[start:end2])
+        except ValueError:
+            existence = 0
+        priority = 0
+        if not any(u in ident for u in _UNINFORMATIVE):
+            if db_type == "sp":
+                priority = 4
+            elif db_type == "tr":
+                priority = 1
+            # unsigned arithmetic: min(existence,5) - 5 wraps for < 5
+            priority = (priority + (min(existence, 5) - 5)) & 0xFFFFFFFF
+        queue.append([priority, ident, protein])
+    _libstdcxx_make_heap(queue, lambda x, y: x[0] < y[0])
+    parts = [f"Representative={rep} n={len(headers)} Descriptions=["]
+    used = set()
+    cnt = 0
+    for i, (_, ident, protein) in enumerate(queue):
+        if cnt > 5:
+            break
+        if protein in used:
+            continue
+        parts.append(protein)
+        used.add(protein)
+        cnt += 1
+        if i != len(queue) - 1 and cnt <= 5:
+            parts.append("|")
+    parts.append("] Members=")
+    for i, (_, ident, _p) in enumerate(queue):
+        parts.append(ident)
+        if i != len(queue) - 1:
+            parts.append(",")
+    return "".join(parts) + "\n"
 
 
 def recoverlongestorf(par, command):

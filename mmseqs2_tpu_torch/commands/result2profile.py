@@ -7,7 +7,7 @@ thresholds), build the noDeletion center-star MSA, HH-style filter
 correction on the int8 scores, tantan profile masking, serialize 25 bytes
 per position (DBTYPE_HMM_PROFILE). Key-only hits are aligned again through
 Aligner.align_query (the `sw_multi` kernel on the card). `sequence2profile`
-is not yet ported (see ROADMAP.md).
+builds context-pseudocount profiles of single sequences (profile/cs.py).
 """
 
 import numpy as np
@@ -292,4 +292,53 @@ def filterresult(par, command):
                 out_lines.append(hits[row - 1].to_line(True))
             writer.write(query_key, "".join(out_lines).encode())
     res.close()
+    return 0
+
+
+def sequence2profile(par, command):
+    """`sequence2profile` — single sequences to context-pseudocount profiles
+    (reference src/util/sequence2profile.cpp). Each sequence gets the
+    CSProfile context mix (profile/cs.py: one product per sequence, on the
+    device for a library of 512 or more contexts),
+    an 8-bit log-PSSM, optional tantan profile masking, and the 25-byte
+    toBuffer layout. NOTE the reference quirk reproduced here: the
+    consensus byte passes numeric residues through aa2num, mapping every
+    position to X (sequence2profile.cpp:63 + SubstitutionMatrix.cpp:293).
+
+    The reference embeds its K4000.crf context library via git-lfs which is
+    absent from this source snapshot, so the default library here is the
+    documented synthetic one (profile/cs.py); --context-lib loads a real
+    .crf file."""
+    from ..profile import cs as csmod
+
+    in_path, out_path = par.filenames[:2]
+    submat = get_sub_mat(par)
+    reader = DBReader(in_path)
+    if par.context_lib:
+        lib = csmod.load_crf(open(par.context_lib).read())
+    else:
+        lib = csmod.synthetic_library(par.sub_mat.aa)
+    ext = 0
+    if par.pc_mode == 1:
+        ext = dbt.DBTYPE_EXTENDED_CONTEXT_PSEUDO_COUNTS
+    enc = submat.make_aa2num_table()
+    with DBWriter(out_path, dbt.DBTYPE_HMM_PROFILE, ext,
+                  compressed=bool(par.compressed)) as writer:
+        for i in range(reader.size):
+            key = reader.get_db_key(i)
+            q_num = enc[np.frombuffer(reader.get_seq(i),
+                                      np.uint8)].astype(np.int64)
+            L = len(q_num)
+            prof = csmod.compute_sequence_cs(q_num, lib, tau=par.tau)
+            pssm = pssmmod.compute_log_pssm(prof, submat.pback, 8.0, 0.0)
+            if par.mask_profile:
+                pssm = mask_profile(pssm, q_num.copy(), submat)
+            neff = np.ones(L, np.float32)
+            out = np.zeros((L, 25), np.uint8)
+            out[:, :20] = pssm.view(np.uint8)
+            out[:, 20] = q_num.astype(np.uint8)
+            out[:, 21] = 20    # aa2num[numeric byte] == X, see docstring
+            out[:, 22] = pssmmod.convert_neff_to_char(neff)
+            writer.write(key, out.tobytes())
+    reader.close()
     return 0

@@ -4,8 +4,9 @@ Port of mmseqs2_tpu/commands/search.py: the protein-vs-protein path with
 single and multi sensitivity stepping, the iterative profile search
 (--num-iterations, blastpgp.sh), sequence queries against profile targets
 (searchtargetprofile.sh), the sliced search (--exhaustive-search,
-searchslicedtargetprofile.sh), the translated search (translated_search.sh)
-and the nucleotide search (--search-type 3, blastn.sh). Reference:
+searchslicedtargetprofile.sh), the translated search (translated_search.sh),
+the nucleotide search (--search-type 3, blastn.sh) and the profile
+enrichment workflow `enrich` (enrich.sh). Reference:
 src/workflow/Search.cpp (mode matrix :33-123, parameter wiring :544-629) +
 data/workflow/blastp.sh.
 --prefilter-mode: 0 k-mer index (default), 1 exhaustive ungapped, 2
@@ -445,4 +446,91 @@ def _search_target_profile(par, wf, qdb, tdb, out_aln):
             [tdb, qdb, wf.path("aln_swapped"), out_aln], par)
     if par.remove_tmp_files:
         wf.cleanup(True)
+    return 0
+
+
+def enrich(par, command):
+    """`enrich` — iterative profile-enrichment search through a profile DB.
+
+    Reference: data/workflow/enrich.sh + src/workflow/Enrich.cpp:11-14
+    (defaults numIterations=3, expansionMode=1, backtrace on). Pipeline:
+    exhaustive search of the query against the target-profile DB, convert
+    to query profiles, then NUM_IT rounds of [prefilter vs the profile
+    consensus DB -> subtract already-found -> align -> expandaln through
+    the profile members -> merge -> next-round profiles].
+    """
+    qdb, prof_seq, target_prof, prof_res, out_db, tmp = par.filenames[:6]
+    if not par.was_set("num_iterations"):
+        par.set("num_iterations", 3)
+    if not par.was_set("expansion_mode"):
+        par.set("expansion_mode", 1)
+    par.set("add_backtrace", True)
+    wf = Workflow(tmp, par.force_reuse)
+    num_it = par.num_iterations
+    original_eval = par.evalue
+    eval_profile = min(par.evalue, par.e_profile)
+    consensus = target_prof + "_consensus"
+    if not os.path.exists(consensus + ".dbtype"):
+        # profile DBs from result2profile ship without a consensus DB;
+        # materialize one (the reference assumes createdb-style profile DBs
+        # that already carry _consensus)
+        consensus = wf.path("prof_consensus")
+        wf.step(consensus, "profile2consensus", [target_prof, consensus],
+                par)
+
+    search_slice = wf.path("search_slice")
+    wf.step(search_slice, "search",
+            [qdb, target_prof, search_slice, wf.path("slice_tmp"),
+             "--num-iterations", 1, "-a", 1], par)
+    prof_slice = wf.path("prof_slice")
+    wf.step(prof_slice, "result2profile",
+            [qdb, target_prof, search_slice, prof_slice], par)
+
+    current_q = prof_slice
+    aln0 = wf.path("aln_0")
+    for step in range(num_it):
+        last = step == num_it - 1
+        step_eval = original_eval if last else eval_profile
+        pref = wf.path(f"pref_{step}")
+        wf.step(pref, "prefilter", [current_q, consensus, pref], par)
+        if step >= 1:
+            marker = pref + ".hasnext"
+            if not os.path.exists(marker):
+                sub = wf.path(f"pref_next_{step}")
+                wf.step_always("subtractdbs",
+                               [pref, aln0, sub, "-e", original_eval,
+                                "--e-profile", par.e_profile], par)
+                for suf in ("", ".index", ".dbtype"):
+                    os.replace(sub + suf, pref + suf)
+                open(marker, "w").close()
+        aln = wf.path(f"aln_{step}")
+        wf.step(aln, "align",
+                [current_q, consensus, pref, aln, "-e", step_eval,
+                 "-a", 1], par)
+        exp_marker = wf.path(f"aln_exp_{step}.hasexpand")
+        if not os.path.exists(exp_marker):
+            exp = wf.path(f"aln_exp_{step}")
+            wf.step_always("expandaln",
+                           [current_q, prof_seq, aln, prof_res, exp,
+                            "--expansion-mode", par.expansion_mode], par)
+            for suf in ("", ".index", ".dbtype"):
+                os.replace(exp + suf, aln + suf)
+            open(exp_marker, "w").close()
+        if step > 0:
+            merge_marker = aln + ".hasmerge"
+            if not os.path.exists(merge_marker):
+                new = wf.path("aln_new")
+                wf.step_always("mergedbs", [current_q, new, aln0, aln], par)
+                for suf in ("", ".index", ".dbtype"):
+                    os.replace(new + suf, aln0 + suf)
+                open(merge_marker, "w").close()
+        if step != num_it - 1:
+            prof = wf.path(f"profile_{step}")
+            wf.step(prof, "result2profile", [qdb, prof_seq, aln0, prof],
+                    par)
+            current_q = prof
+    for suf in ("", ".index", ".dbtype"):
+        if os.path.exists(aln0 + suf):
+            os.replace(aln0 + suf, out_db + suf)
+    wf.cleanup(par.remove_tmp_files)
     return 0
