@@ -46,7 +46,15 @@ caught. Phases, each printing lines before the last:
      ends of the entries, 2^17 pad slots, a list longer than a tile and a
      run of 3,000 zero-count triples, 2^21 expansions into an index that
      fits the L2, and a real flush of 128 toy queries on the toy DB's
-     index), with GB/s and its share of the byte bound;
+     index), with GB/s and its share of the byte bound; and fwbw (B5, the
+     forward-backward alignment) at phase 14's commonest lengths (512
+     pairs of 250-350 residues), at 512 x 512 and on a ragged batch with
+     1 x 700, 700 x 1 and 2,000 x 2,000 edges: P within rtol 1e-4, atol
+     1e-7 of the plain version's, the kernel's MAC fed the plain P equal
+     to the plain MAC bit for bit, and end to end each pair's first
+     maximum and cigar equal but where the two alignments tie under the
+     plain P (phase 14's rule; printed), against its bound (f32
+     operations);
   4. golden parity: the port's `align` on the 500-query toy set equals the
      reference MMseqs2 goldens (tests/golden/toy, tests/golden/alt): default
      and non-default scoring, --alt-ali, --corr-score-weight (--realign is
@@ -61,9 +69,9 @@ caught. Phases, each printing lines before the last:
      `ungappedprefilter --gpu 1` and `gappedprefilter --gpu 1` give the
      bytes of the runs without a server, and the server launched both
      score-only kernels (gapless_score, sw_score); `search --prefilter-mode
-     1` runs
-     and its first queries' entries equal a run with the CPU requested
-     (run beside it);
+     1` runs on the first 100 queries (a cut for time) and its first
+     queries' entries equal a run with the CPU requested (beside phases
+     3-4);
      clustering: `clust` (3 modes), `rescorediagonal` (3 modes),
      `kmermatcher` (v1 and three v2 flag sets), `linclust` and `cluster`
      with --linclust-version 1 equal their goldens (clu*, resc*, kmpref,
@@ -95,7 +103,19 @@ caught. Phases, each printing lines before the last:
      nothing); and on the card `result2msa` of the toy's alignments with
      their backtraces stripped (the realignment through sw_multi) and
      `enrich` of three toy queries (one iteration), both equal byte for
-     byte to a CPU run beside them (these sides start with phase 3). The
+     byte to a CPU run beside them (these sides start with phase 3).
+     `fwbw` of tests/golden/fwbw/alnsub against reffw (integer fields,
+     cigar and seq-id exact, the MAC score within 3) and every field
+     against a CPU run; the alignx goldens (`alignall` through sw_multi
+     on the card; `transitivealign` and `alignbykmer` of amino acids and
+     nucleotides, host code) and the five `pairaln` goldens, byte for
+     byte, in a subprocess with the card selected, as the MSA goldens;
+     the exhaustive prefilter's nucleotide branches on
+     tests/golden/nucl/ndb (4 of its queries ungapped against it, 2 toy
+     queries gapped against it, makepaddedseqdb of it, and a gpuserver on
+     that padded DB whose --gpu 1 run equals the run without a server) in
+     a subprocess on the card (these start after phase 3), equal to a CPU
+     run (started with phase 3). The
      CPU sides of
      phases 6, 7, 8 (started with phase 3), 9, 11, 12 and 13 run in
      subprocesses
@@ -147,9 +167,13 @@ caught. Phases, each printing lines before the last:
      local run on that DB), and `gappedprefilter` of the 1,000 queries
      (wall, kernels, launches by form, cells needed and computed; once
      more under torch.profiler), no gapped hit below its gapless score,
-     and a sub-DB run equal on the card and the CPU (phase 4's run);
+     and a sub-DB run equal on the card and the CPU (phase 4's run); then
+     both commands on the first 100 queries with the target store's
+     budget forced to an eighth of the store, so that the targets go up in
+     chunks: chunks, bytes and seconds of the uploads, and every entry
+     equal to the resident runs';
   8. clustering at real size, on phase 5's targets: `easy-linclust` of the
-     first 10,000 with the defaults, and `easy-cluster` of the first 2,000
+     first 6,000 with the defaults, and `easy-cluster` of the first 2,000
      (cuts for time) at MMseqs2's README parameters (--min-seq-id 0.5 -c 0.8
      --cov-mode 1), every kernel's count set to 0 just before each and read
      just after: wall, sequences/s, clusters, the wall by step,
@@ -193,7 +217,8 @@ caught. Phases, each printing lines before the last:
      activity only) the card's busy share and posting_expand's device
      time;
  11. translated search at real size (blastx-style): `easy-search` of the
-     first 500 of phase 5's protein queries back-translated into DNA
+     first 250 of phase 5's protein queries (a cut for time) back-translated
+     into DNA
      (synonymous codons drawn from the seed, a stop codon after each, random
      flanks of 0-150 nt, every second query reverse-complemented) against
      phase 6's target DB with its `createindex -s 5.7` index in place
@@ -230,7 +255,16 @@ caught. Phases, each printing lines before the last:
      bound; the first 16 queries' MSA and profile entries equal to phase
      4's CPU side's, B9's probabilities to the CPU's within rtol 1e-5,
      atol 1e-6;
-then one JSON line listing every kernel (nine entry points), with its
+ 14. fwbw at real size (phase_fwbw): `fwbw` of phase 5's prefilter lists
+     of its first 50 queries (15,000 pairs of median length 292), the
+     counts set to 0 just before and read just after: pairs/s, B5's
+     launches and device ms (CUDA events), the host's seconds by part, the
+     busy share; the first 2 queries' records equal to a CPU run beside
+     phases 12-13, but where a pair's two alignments tie under the CPU's P:
+     their MAC values there within 1e-5 plus what rounding can move them
+     (the two runs' P difference over their cells, the f32 DP's rounding;
+     a near tie, printed);
+then one JSON line listing every kernel (ten entry points), with its
 launches on the clustering, iterative, translated, taxonomy and MSA
 paths beside those of the path that launches it;
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without a
@@ -254,7 +288,7 @@ GOLDEN = ROOT / "tests" / "golden" / "toy"
 WORK = ROOT / ".smoke_work"
 SEED = 20261016
 # every kernel source of the port, csrc/<name>.cu: a new kernel adds a name
-KERNEL_SOURCES = ("sw", "rescore", "gapless", "expand")
+KERNEL_SOURCES = ("sw", "rescore", "gapless", "expand", "fwbw")
 # targets of the real-size phases: the size of the reference's small bench
 # run (experiments/make_scale_db.py); the 1,000 queries stay
 N_TARGETS = 50_000
@@ -309,6 +343,21 @@ EXPAND_BYTES_PER_EXPANSION = 16
 EXPAND_BYTES_PER_TRIPLE = 20
 EXPAND_BYTES_PER_PAD = 10
 EXPAND_OPS_PER_EXPANSION = 4
+# the forward-backward alignment (B5, csrc/fwbw.cu): f32 operations one
+# cell needs at the least (exp, log and a division one each), as the JAX
+# algorithm the kernel evaluates has them: each direction of the partition
+# function 20 (S/T and its exp 2, zm's three adds and multiply 4, zf's two
+# multiplies, add and the row's division 4, ze's step 3 and its division 1,
+# zm's division 1, the row max 1, the scan's composition 2, log zm and its
+# offset 2), P 9 (two adds, S/T and the logsumexp's subtraction, exp; the
+# logsumexp's max, subtraction, exp and sum), the MAC DP 21 (P - mact, the
+# diagonal's add and subtraction, the up term, two maxes, j c, two adds, the
+# running max, two subtractions and the floor's subtraction and max, the
+# left term, three compares and three maxes, the row's max); bytes: the
+# residues in (a pair's query and target) and the states out, a byte a cell,
+# with 16 B of results a pair. The peak is the data sheet's f32 rate.
+FWBW_OPS_PER_CELL = 70
+FP32_FLOPS_PER_S = 67e12
 
 
 _PHASE_T0 = [time.perf_counter()]
@@ -1440,6 +1489,176 @@ def phase_expand_kernel():
     return rows
 
 
+# -- B5: the forward-backward alignment ----------------------------------------
+
+def fwbw_bound_ms(pairs):
+    """Least time of one B5 launch: FWBW_OPS_PER_CELL f32 operations a cell
+    at the card's f32 rate, or its bytes (the residues of each pair in, a
+    state byte a cell and 16 B of results a pair out) at its memory rate,
+    whichever takes longer. Returns (ms, bound_by)."""
+    cells = pairs.n_cells
+    ops_s = cells * FWBW_OPS_PER_CELL / FP32_FLOPS_PER_S
+    nbytes = (int(pairs.q_len.sum()) + int(pairs.t_len.sum()) + cells
+              + 16 * pairs.size)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def path_value(P, t0, q0, cigar, mact=0.035):
+    """MAC value of the alignment a fwbw record reports, under the (tlen,
+    qlen) P, in float64, its match cells and its steps: P - mact a match
+    cell, -mact/2 a gap, from the 0-based start (t0, q0) along the cigar
+    (run-length or letter by letter; I moves along the query, D along the
+    target). The DP's own start cell, where the backtrace stops and which
+    the record leaves out, is not counted: the value is the record's, a
+    little under the MAC score."""
+    import re
+    ops = "".join(op * int(n or 1)
+                  for n, op in re.findall(r"(\d*)([MID])", cigar))
+    t, q, v, cells = int(t0), int(q0), 0.0, []
+    for op in ops:
+        if op == "M":
+            v += float(P[t, q]) - mact
+            cells.append((t, q))
+            t, q = t + 1, q + 1
+        else:
+            v -= mact / 2
+            q, t = (q + 1, t) if op == "I" else (q, t + 1)
+    return v, cells, len(ops)
+
+
+def near_tie(p_card, p_ref, card, ref):
+    """Whether two candidate alignments of one pair, the card's and the
+    reference run's ((t_start, q_start, cigar) each), tie under the
+    reference's P: their MAC values there lie within 1e-5 plus what the
+    rounding can move one path's value against the other's, the two runs'
+    P difference summed over the cells of both paths and the f32 DP's
+    rounding (a half ulp of the value a step, over both paths' steps, in
+    both runs). Returns (near, card's value, reference's value,
+    tolerance)."""
+    v_card, c1, n1 = path_value(p_ref, *card)
+    v_ref, c2, n2 = path_value(p_ref, *ref)
+    steps = n1 + n2
+    tol = (1e-5 + sum(abs(float(p_card[c]) - float(p_ref[c]))
+                      for c in set(c1) | set(c2))
+           + 2 * steps * 2.0 ** -24 * max(abs(v_card), abs(v_ref)))
+    return abs(v_card - v_ref) <= tol, v_card, v_ref, tol
+
+
+def related_pairs(rng, submat, shapes, mut_rate=0.3):
+    """(queries, targets) of residue codes for (tlen, qlen) shapes: a query
+    from the background, its target the query's letters with mut_rate of
+    them mutated, shifted by a few positions and cut or filled from the
+    background to tlen, so that the pairs align with gaps."""
+    aa_idx = np.array([submat.aa2num[c] for c in AA])
+    qs, ts = [], []
+    for tl, ql in shapes:
+        q = aa_idx[rng.choice(20, size=int(ql), p=PBACK)]
+        shift = int(rng.integers(0, 6))
+        t = np.concatenate([aa_idx[rng.choice(20, size=shift, p=PBACK)],
+                            q.copy()])
+        mut = rng.random(len(t)) < mut_rate
+        t[mut] = aa_idx[rng.choice(20, size=int(mut.sum()), p=PBACK)]
+        if len(t) < tl:
+            t = np.concatenate([t, aa_idx[rng.choice(
+                20, size=int(tl) - len(t), p=PBACK)]])
+        qs.append(q)
+        ts.append(t[:int(tl)])
+    return qs, ts
+
+
+def fwbw_row(label, pairs, mat, reps=5):
+    """B5 against its plain version on the card for one batch of pairs: P
+    within rtol 1e-4, atol 1e-7 (the partition function's sums in another
+    order); the kernel's MAC fed the plain P equal to the plain MAC bit for
+    bit (states, score, first maximum, max P); end to end, each pair's
+    first maximum and cigar equal to the plain version's but where the two
+    alignments tie under the plain P (near_tie; printed); ms by CUDA events,
+    the plain version's (its comparison call, timed on the host around a
+    synchronisation), the bound."""
+    import torch
+    from mmseqs2_tpu_torch.ops import fwbw as F
+    got = F.fwbw(pairs, mat, want_p=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = F.fwbw_plain(pairs, mat, want_p=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3     # the plain version once
+    err = float((got["p"] - want["p"]).abs().max())
+    p_close = bool(torch.allclose(got["p"], want["p"], rtol=1e-4,
+                                  atol=1e-7))
+    fed = F.fwbw(pairs, mat, p_in=want["p"])
+    fed_equal = all(torch.equal(fed[k], want[k])
+                    for k in ("bt", "score", "bi", "bj", "maxp"))
+    host = lambda o: {k: o[k].cpu().numpy() for k in o}   # noqa: E731
+    g, w = host(got), host(want)
+    args = (pairs.cell_off.cpu().numpy(), pairs.q_len.cpu().numpy())
+    gw = F.backtrace(g["bt"], *args, g["bi"], g["bj"])
+    ww = F.backtrace(w["bt"], *args, w["bi"], w["bj"])
+    near, bad = [], []
+    for b in range(pairs.size):
+        same = (g["bi"][b] == w["bi"][b] and g["bj"][b] == w["bj"][b]
+                and gw["cigar"][b] == ww["cigar"][b])
+        if same:
+            continue
+        t, q = int(pairs.t_len[b]), int(pairs.q_len[b])
+        lo = int(pairs.cell_off[b])
+        pc = g["p"][lo:lo + t * q].reshape(t, q)
+        pr = w["p"][lo:lo + t * q].reshape(t, q)
+        tie = near_tie(pc, pr, (gw["t_start"][b], gw["q_start"][b],
+                                gw["cigar"][b]),
+                       (ww["t_start"][b], ww["q_start"][b], ww["cigar"][b]))
+        (near if tie[0] else bad).append((b, *tie[1:]))
+    ms = device_ms(lambda: F.fwbw(pairs, mat), reps)
+    bound, by = fwbw_bound_ms(pairs)
+    row = dict(case=f"{label}: {pairs.size} pairs, {pairs.n_cells} cells, "
+               f"longest query {pairs.max_q}", p_close=p_close,
+               max_abs_err=err, mac_fed_plain_p_equal=fed_equal,
+               pairs_near_tie=len(near), pairs_differ=len(bad),
+               equal=p_close and fed_equal and not bad, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+               bound_share=bound / ms,
+               gcells_per_s=pairs.n_cells / ms / 1e6, library_ms=None)
+    log("fwbw-case " + json.dumps(row))
+    for b, v_card, v_ref, tol in near:
+        log(f"  near tie: pair {b}: card's alignment {v_card!r}, the plain "
+            f"version's {v_ref!r} under the plain P (tolerance {tol!r})")
+    if not row["equal"]:
+        raise AssertionError(f"fwbw differs from its plain version: "
+                             f"{row['case']} (P close {p_close}, MAC fed "
+                             f"the plain P equal {fed_equal}, pairs "
+                             f"{bad[:10]})")
+    return row
+
+
+def phase_fwbw_kernel():
+    """B5 against its plain version at phase 14's commonest lengths (512
+    related pairs, query and target 250-350 residues: phase 5's median is
+    292), at 512 x 512 (64 pairs), and on a ragged batch of 30 pairs of
+    phase 5's length distribution (50-2,000) with the edges 1 x 700 and
+    700 x 1, with the command's matrix (BLOSUM62 at bit factor 2). From its own generator, so that the later phases' data stay those
+    of the earlier runs."""
+    import torch
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    from mmseqs2_tpu_torch.ops import fwbw as F
+    rng = np.random.default_rng(SEED + 17)
+    submat = get_submat("blosum62.out", 2.0, 0.0)
+    mat = torch.from_numpy(np.asarray(submat.sub_matrix,
+                                      np.float32)).cuda()
+    cases = [
+        ("commonest", rng.integers(250, 351, size=(512, 2))),
+        ("512x512", np.full((64, 2), 512)),
+        ("ragged", np.concatenate([lengths(rng, 60).reshape(30, 2),
+                                   [[1, 700], [700, 1]]]))]
+    rows = []
+    for label, shapes in cases:
+        qs, ts = related_pairs(rng, submat, shapes)
+        pairs = F.make_pairs(qs, ts, range(len(qs)), range(len(ts)), "cuda")
+        rows.append((dict(label=label), fwbw_row(label, pairs, mat)))
+    return rows
+
+
 # -- CLI helpers -------------------------------------------------------------------
 
 def run_cli(args, cpu=False):
@@ -1733,34 +1952,220 @@ def phase_golden_exhaustive(prof):
         raise AssertionError("the server launched no gapless_score or no "
                              "sw_score kernel")
 
-    # search --prefilter-mode 1: ungappedprefilter in the prefilter's place;
-    # its first queries with the CPU requested run beside it
-    n_check = 2
-    q_chk = sub_db(qdb, n_check, WORK / "toy_q_chk")
-    side = {}
-    # (the sub-DB has another path than the target DB: --add-self-matches
-    # keeps the self hit on scoreIdentical's route, as the same path does)
-    with cli_cpu_side("search --prefilter-mode 1", [[
-            "search", q_chk, qdb, WORK / "toy_search1_cpu",
-            WORK / "toy_search1_cpu_tmp", "--prefilter-mode", "1",
-            "--add-self-matches", "1"]], side):
-        t0 = time.perf_counter()
-        run_cli(["search", qdb, qdb, WORK / "toy_search1",
-                 WORK / "toy_search1_tmp", "--prefilter-mode", "1"])
-        wall = time.perf_counter() - t0
+    # search --prefilter-mode 1: ungappedprefilter in the prefilter's place,
+    # on the first 100 queries (a cut for time; --add-self-matches keeps
+    # the self hit on scoreIdentical's route, as the same path does); its
+    # first queries with the CPU requested run beside phases 3-4
+    # (PM1_CPU_STEPS), and pm1_check holds them after the phase
+    t0 = time.perf_counter()
+    run_cli(["search", q100, qdb, WORK / "toy_search1",
+             WORK / "toy_search1_tmp", "--prefilter-mode", "1",
+             "--add-self-matches", "1"])
+    log(f"search --prefilter-mode 1: 100 queries, "
+        f"{time.perf_counter() - t0:.2f} s")
+    return pong["launches"]
+
+
+# search --prefilter-mode 1's CPU side (phase 4): its first PM1_CHECK
+# queries, started with phase 3
+PM1_CHECK = 2
+PM1_CPU_STEPS = [
+    ["sub_db", GOLDEN / "qdb", PM1_CHECK, WORK / "toy_q_chk"],
+    ["search", WORK / "toy_q_chk", GOLDEN / "qdb", WORK / "toy_search1_cpu",
+     WORK / "toy_search1_cpu_tmp", "--prefilter-mode", "1",
+     "--add-self-matches", "1"]]
+
+
+def pm1_check(side):
+    """search --prefilter-mode 1 of phase 4 on the card against its CPU
+    side: the first PM1_CHECK queries' entries equal."""
     got = entries(WORK / "toy_search1")
     cpu = entries(WORK / "toy_search1_cpu")
     bad = [k for k in cpu if cpu[k] != got.get(k)]
     log(f"search --prefilter-mode 1: {len(got)} queries, "
-        f"{sum(v.count(b'\n') for v in got.values())} alignments, "
-        f"{wall:.2f} s; first {n_check} queries "
+        f"{sum(v.count(b'\n') for v in got.values())} alignments; first "
+        f"{PM1_CHECK} queries "
         f"({sum(v.count(b'\n') for v in cpu.values())} alignments) equal a "
         f"run with the CPU requested: {len(bad)} differ, CPU side "
         f"{side['cpu_s']:.2f} s")
-    if bad or len(cpu) != n_check or len(got) != 500 or not all(cpu.values()):
+    if bad or len(cpu) != PM1_CHECK or len(got) != 100 \
+            or not all(cpu.values()):
         raise AssertionError(f"search --prefilter-mode 1 differs on the card "
                              f"and the CPU for queries {bad[:10]}")
-    return pong["launches"]
+
+
+# -- phase 4: fwbw, the alignment extras, nucleotide DBs in the exhaustive
+# prefilter ---------------------------------------------------------------------
+
+NUCL = GOLDEN.parent / "nucl"
+FWBW_GOLDEN = GOLDEN.parent / "fwbw"
+PAIR_FLAGS = {
+    "ptop": [],
+    "ptopd": ["--pairing-dummy-mode", "1"],
+    "pprox": ["--pairing-filter", "1"],
+    "pprox2": ["--pairing-filter", "1", "--pairing-prox-dist",
+               "900000000000000000"],
+    "pproxall2": ["--pairing-filter", "1", "--pairing-mode", "1",
+                  "--pairing-dummy-mode", "1", "--pairing-prox-dist",
+                  "900000000000000000"]}
+
+
+def extra_cpu_steps():
+    """This slice's phase-4 CPU side (cli_cpu_side, started with phase 3):
+    `fwbw` of the golden's alnsub, the first 4 nucleotide queries'
+    ungappedprefilter against nucl/ndb, the first 2 toy queries'
+    gappedprefilter against it, makepaddedseqdb of it and the 4 queries
+    against that padded DB."""
+    nd = NUCL / "ndb"
+    return [
+        ["fwbw", GOLDEN / "qdb", GOLDEN / "qdb", FWBW_GOLDEN / "alnsub",
+         WORK / "cpu_fw"],
+        ["sub_db", nd, 4, WORK / "cpu_nq4"],
+        ["ungappedprefilter", WORK / "cpu_nq4", nd, WORK / "cpu_nupref"],
+        ["sub_db", GOLDEN / "qdb", 2, WORK / "cpu_q2"],
+        ["gappedprefilter", WORK / "cpu_q2", nd, WORK / "cpu_ngpref",
+         *WIDE],
+        ["makepaddedseqdb", nd, WORK / "cpu_npad"],
+        ["ungappedprefilter", WORK / "cpu_nq4", WORK / "cpu_npad",
+         WORK / "cpu_npad_loc", *WIDE]]
+
+
+# the goldens of commands/align_extra.py: name -> (command, input DBs,
+# flags); run beside phase 4 in a subprocess with the card selected
+# (alignall's sw_multi runs on the card; the others are host code), as the
+# MSA goldens are
+ALIGNX = GOLDEN.parent / "alignx"
+PAIR = GOLDEN.parent / "pairaln"
+HOST_EXTRA_GOLDENS = {
+    "allaln": ("alignall", [GOLDEN / "qdb", GOLDEN / "clu0"], ["-a"]),
+    "transaln": ("transitivealign", [GOLDEN / "qdb", GOLDEN / "aln"], []),
+    "abk": ("alignbykmer", [GOLDEN / "qdb", GOLDEN / "qdb", GOLDEN / "pref"],
+            []),
+    "nabk": ("alignbykmer", [NUCL / "ndb", NUCL / "ndb", ALIGNX / "nprefx"],
+             []),
+    **{name: ("pairaln", [PAIR / "pairq", PAIR / "tdb", PAIR / "aln"], flags)
+       for name, flags in PAIR_FLAGS.items()}}
+
+
+def host_extra_steps():
+    """The side of HOST_EXTRA_GOLDENS: each command into
+    WORK/golden_<name>."""
+    return [[cmd, *dbs, WORK / f"golden_{name}", *flags]
+            for name, (cmd, dbs, flags) in HOST_EXTRA_GOLDENS.items()]
+
+
+def golden_differs(name):
+    """Whether WORK/golden_<name> differs from its alignx/pairaln golden
+    (data file and index)."""
+    gold = (ALIGNX if name in ("allaln", "transaln", "abk", "nabk")
+            else PAIR) / name
+    return any(pathlib.Path(f"{WORK / f'golden_{name}'}{suf}").read_bytes()
+               != pathlib.Path(f"{gold}{suf}").read_bytes()
+               for suf in ("", ".index"))
+
+
+def nucl_card_runs():
+    """The nucleotide branches on the card (a subprocess beside phase 4,
+    NUCL_CARD_SIDE): the first 4 queries of nucl/ndb against it
+    (ungapped), the first 2 toy queries against it (gapped),
+    makepaddedseqdb of it and a gpuserver on that padded DB, whose --gpu 1
+    run of the 4 queries is held to the run without a server by
+    extra_golden_check. Writes the launches to WORK/nucl_card.json."""
+    from mmseqs2_tpu_torch.ops import gapless, sw
+    from mmseqs2_tpu_torch.server import device_server
+    nd = NUCL / "ndb"
+    nq4 = sub_db(nd, 4, WORK / "nq4")
+    run_cli(["ungappedprefilter", nq4, nd, WORK / "nupref"])
+    run_cli(["gappedprefilter", sub_db(GOLDEN / "qdb", 2, WORK / "q2"), nd,
+             WORK / "ngpref", *WIDE])
+    run_cli(["makepaddedseqdb", nd, WORK / "npad"])
+    with gpuserver(WORK / "npad"):
+        run_cli(["ungappedprefilter", nq4, WORK / "npad", WORK / "npad_srv",
+                 "--gpu", "1", *WIDE])
+        served = device_server.ping_server(str(WORK / "npad"))["launches"]
+    run_cli(["ungappedprefilter", nq4, WORK / "npad", WORK / "npad_loc",
+             *WIDE])
+    (WORK / "nucl_card.json").write_text(json.dumps(dict(
+        gapless=gapless.gapless.launches, sw_single=sw.sw_single.launches,
+        server_gapless_score=served["gapless_score"])))
+
+
+NUCL_CARD_SIDE = r"""
+from chip_smoke import nucl_card_runs
+nucl_card_runs()
+"""
+
+
+def fwbw_records(path):
+    """{query: {target: record fields}} of a fwbw result DB."""
+    out = {}
+    for k, data in entries(path).items():
+        out[k] = {}
+        for line in data.decode().splitlines():
+            f = line.split("\t")
+            out[k][int(f[0])] = f
+    return out
+
+
+def phase_golden_extra():
+    """On the card: `fwbw` of tests/golden/fwbw/alnsub against reffw (the
+    integer fields, cigar and seq-id exact, the MAC score within 3, as
+    tests/test_fwbw.py holds the JAX package; extra_golden_check holds it
+    to the CPU side's). The alignx, pairaln and nucleotide runs of this
+    slice run in
+    subprocesses beside phase 4 (HOST_EXTRA_GOLDENS, NUCL_CARD_SIDE)
+    and are held by extra_golden_check. Returns fwbw's counters."""
+    from mmseqs2_tpu_torch.commands import fwbw_cmd
+    from mmseqs2_tpu_torch.ops import fwbw as F
+    qdb = GOLDEN / "qdb"
+    F.fwbw.launches = 0
+    fwbw_cmd.reset_stats()
+    t0 = time.perf_counter()
+    run_cli(["fwbw", qdb, qdb, FWBW_GOLDEN / "alnsub", WORK / "golden_fw"])
+    wall = time.perf_counter() - t0
+    got, want = fwbw_records(WORK / "golden_fw"), fwbw_records(
+        FWBW_GOLDEN / "reffw")
+    bad = [(k, t) for k in want for t in want[k]
+           if t not in got.get(k, {}) or got[k][t][2:] != want[k][t][2:]
+           or abs(int(got[k][t][1]) - int(want[k][t][1])) > 3]
+    log(f"golden fwbw: {len(want)} queries, {len(bad)} records differ, "
+        f"{F.fwbw.launches} B5 launches, {wall:.2f} s")
+    if bad or F.fwbw.launches <= 0 or set(got) != set(want):
+        raise AssertionError(f"fwbw differs from reffw: {bad[:5]}")
+    return dict(fwbw_cmd.STATS)
+
+
+def extra_golden_check(side, host_side, nucl_side):
+    """The sides of this slice's phase-4 runs: the card's `fwbw` of the
+    golden against the CPU side's, every field of every record; the
+    nucleotide runs on the card (NUCL_CARD_SIDE) against the CPU side's,
+    every entry and the padded DB's files byte for byte, --gpu 1 equal to
+    the run without a server, each run's kernels launched; and the alignx
+    and pairaln goldens (HOST_EXTRA_GOLDENS), byte for byte."""
+    pairs = [(WORK / a, WORK / b) for a, b in (
+        ("nupref", "cpu_nupref"), ("ngpref", "cpu_ngpref"),
+        ("npad_loc", "cpu_npad_loc"), ("npad_srv", "npad_loc"))]
+    bad = [str(a.name) for a, b in pairs
+           if entries(a) != entries(b) or not all(entries(a).values())]
+    bad += [f"npad{suf}" for suf in ("", ".index", ".dbtype", "_h",
+                                     "_h.index")
+            if pathlib.Path(f"{WORK / 'npad'}{suf}").read_bytes()
+            != pathlib.Path(f"{WORK / 'cpu_npad'}{suf}").read_bytes()]
+    if fwbw_records(WORK / "golden_fw") != fwbw_records(WORK / "cpu_fw"):
+        bad.append("fwbw")
+    launches = json.loads((WORK / "nucl_card.json").read_text())
+    gold = [name for name in HOST_EXTRA_GOLDENS if golden_differs(name)]
+    log(f"phase 4 fwbw, and the nucleotide exhaustive prefilter, "
+        f"makepaddedseqdb and gpuserver on the card (a subprocess, "
+        f"{nucl_side['cpu_s']:.2f} s, launches {json.dumps(launches)}), "
+        f"against the CPU side ({side['cpu_s']:.2f} s): {len(bad)} differ; "
+        f"the alignx and "
+        f"pairaln goldens (a subprocess with the card selected, "
+        f"{host_side['cpu_s']:.2f} s): {len(HOST_EXTRA_GOLDENS)} outputs, "
+        f"{len(gold)} differ")
+    if bad or gold or min(launches.values()) <= 0:
+        raise AssertionError(f"card and CPU differ: {bad}; goldens differ: "
+                             f"{gold}; launches {launches}")
 
 
 def phase_golden_cluster():
@@ -2875,8 +3280,37 @@ def phase_exhaustive(check, n_queries=1_000, max_seqs=300,
     if low or a != b or not any(b.values()) or gapped["hits"] == 0:
         raise AssertionError("gappedprefilter differs on the card and the "
                              "CPU")
+
+    # f. past the store budget: the first n_server_check queries with the
+    # budget forced to about an eighth of the store, so that the targets go
+    # up in chunks; the entries must equal the resident runs'
+    chunked = {}
+    budget = ungapped["store_bytes"] // 8
+    prefilter_cmd.STORE_BUDGET = budget
+    try:
+        for label, cmd, ref in (("ungapped", "ungappedprefilter", "upref"),
+                                ("gapped", "gappedprefilter", "gpref")):
+            zero_counts()
+            wall_c = timed([cmd, q_srv, tdb, WORK / f"{ref}_chunked",
+                            "--max-seqs", max_seqs])
+            st = dict(prefilter_cmd.STATS)
+            full = entries(WORK / ref)
+            got_c = entries(WORK / f"{ref}_chunked")
+            bad = [k for k in got_c if got_c[k] != full.get(k)]
+            chunked[label] = dict(
+                queries=n_server_check, budget_bytes=budget,
+                chunks=st["chunks"], upload_bytes=st["store_bytes"],
+                upload_s=st["store_s"], wall_s=wall_c,
+                launches=st["launches"], kernel_s=st["kernel_ms"] / 1e3,
+                host_s=st["host_s"], entries_differ=len(bad))
+            log(f"{cmd} chunked " + json.dumps(chunked[label]))
+            if bad or len(got_c) != n_server_check or st["chunks"] < 2:
+                raise AssertionError(f"the chunked {cmd} differs from the "
+                                     f"resident run for queries {bad[:10]}")
+    finally:
+        prefilter_cmd.STORE_BUDGET = None
     return dict(ungapped=ungapped, trace=trace, server=server, gapped=gapped,
-                gapped_trace=gapped_trace)
+                gapped_trace=gapped_trace, chunked=chunked)
 
 
 @contextlib.contextmanager
@@ -3169,10 +3603,11 @@ for argv in json.loads(sys.argv[1]):
 """
 
 
-def cli_cpu_side(label, steps, out):
+def cli_cpu_side(label, steps, out, device="cpu"):
     """cpu_side of CLI_CPU_CHECK on `steps`."""
     return cpu_side(label, CLI_CPU_CHECK,
-                    [json.dumps([[str(a) for a in st] for st in steps])], out)
+                    [json.dumps([[str(a) for a in st] for st in steps])], out,
+                    device)
 
 
 @contextlib.contextmanager
@@ -3495,7 +3930,7 @@ def first_lines(path):
 
 def phase_translated(check, n_queries=500, n_traced=512):
     """Translated search at real size (blastx-style, cell
-    translated_es_500x50k): `easy-search` of the first n_queries of phase
+    translated_es_250x50k): `easy-search` of the first n_queries of phase
     5's protein queries as DNA (dna_queries) against phase 6's target DB
     with its `createindex -s 5.7` index in place (nothing is rebuilt):
     extractorfs, the protein prefilter and align over the ORFs on the card,
@@ -4278,6 +4713,126 @@ def phase_msa(check, n_queries=250, n_profile=16, n_realign=1):
     return res
 
 
+# -- phase 14: fwbw at real size --------------------------------------------------
+
+# phase 14: the queries of phase 5's prefilter lists (the input of its
+# `align -a`, 300 candidates a query) it aligns, and the first of them held
+# to a CPU run
+FWBW_QUERIES = 50
+FWBW_CHECK = 2
+
+
+def sub_result(src, n, dst):
+    """The entries of the n smallest keys of a result DB."""
+    from mmseqs2_tpu_torch.db.reader import DBReader
+    from mmseqs2_tpu_torch.db.writer import DBWriter
+    with DBReader(str(src)) as r, \
+            DBWriter(str(dst), r.base_type, r.extended_type) as w:
+        for k in sorted(int(k) for k in r.keys)[:n]:
+            w.write(k, r.get_data(r.get_id(k)))
+    return dst
+
+
+@contextlib.contextmanager
+def fwbw_cpu_side(out):
+    """Phase 14's CPU side: `fwbw` of phase 5's prefilter lists of its
+    first FWBW_CHECK queries with the CPU requested, started before phase
+    12 and waited for before phase 14 (it runs beside phases 12-13 at nice
+    19: their host work is mostly one thread)."""
+    aln = sub_result(WORK / "pref", FWBW_CHECK, WORK / "fw_aln_check")
+    with cli_cpu_side("fwbw", [["fwbw", WORK / "qdb", WORK / "tdb", aln,
+                                WORK / "fw_cpu"]], out):
+        yield
+
+
+def pair_p(qkey, tkey):
+    """One pair's P on the card (B5) and on the CPU (the plain version),
+    (tlen, qlen) numpy each, from phase 5's DBs with the command's
+    matrix."""
+    import torch
+    from mmseqs2_tpu_torch.commands.common import EncodedDB, open_seq_db
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    from mmseqs2_tpu_torch.ops import fwbw as F
+    submat = get_submat("blosum62.out", 2.0, 0.0)
+    q, t = (EncodedDB(open_seq_db(str(WORK / db)), submat)
+            for db in ("qdb", "tdb"))
+    qs = [q.seq_num(q.reader.get_id(qkey))]
+    ts = [t.seq_num(t.reader.get_id(tkey))]
+    mat = torch.from_numpy(np.asarray(submat.sub_matrix, np.float32))
+    card = F.fwbw(F.make_pairs(qs, ts, [0], [0], "cuda"), mat.cuda(),
+                  want_p=True)
+    cpu = F.fwbw_plain(F.make_pairs(qs, ts, [0], [0], "cpu"), mat,
+                       want_p=True)
+    shape = (len(ts[0]), len(qs[0]))
+    return (card["p"].cpu().numpy().reshape(shape),
+            cpu["p"].numpy().reshape(shape))
+
+
+def phase_fwbw(side, n_queries=FWBW_QUERIES):
+    """`fwbw` of phase 5's prefilter lists (the pairs its `align -a`
+    aligns: 300 candidates a query, median length 292; its alignment
+    output keeps about 7 a query, too few to load the card) for its first
+    n_queries queries, the counts set to 0 just before and read just after:
+    pairs/s, B5 launches and device ms (CUDA events), the host's seconds by
+    part, the busy share; the first
+    FWBW_CHECK queries' records equal to the CPU side's (fwbw_cpu_side),
+    but where the two runs' alignments of a pair tie under the CPU's P
+    (near_tie: printed)."""
+    import torch
+    from mmseqs2_tpu_torch.commands import fwbw_cmd
+    from mmseqs2_tpu_torch.ops import fwbw as F
+    aln = sub_result(WORK / "pref", n_queries, WORK / "fw_aln")
+    F.fwbw.launches = 0
+    fwbw_cmd.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_cli(["fwbw", WORK / "qdb", WORK / "tdb", aln, WORK / "fw"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = F.fwbw.launches
+    st = dict(fwbw_cmd.STATS)
+    res = dict(queries=st["queries"], pairs=st["pairs"], cells=st["cells"],
+               wall_s=wall, pairs_per_s=st["pairs"] / wall,
+               launches=launches, batches=st["batches"],
+               b5_device_ms=st["kernel_ms"],
+               busy_share=st["kernel_ms"] / 1e3 / wall,
+               pack_s=st["pack_s"], readback_wait_s=st["wait_s"],
+               backtrace_s=st["backtrace_s"], records_write_s=st["write_s"])
+    log("fwbw " + json.dumps(res))
+    if launches <= 0 or st["queries"] != n_queries or st["pairs"] == 0:
+        raise AssertionError("the fwbw run launched no B5 kernel or did not "
+                             "write every query")
+    card, cpu = fwbw_records(WORK / "fw"), fwbw_records(WORK / "fw_cpu")
+    near, bad = [], []
+    for k in cpu:
+        if set(card.get(k, {})) != set(cpu[k]):
+            bad.append((k, "targets"))
+            continue
+        for t, fields in cpu[k].items():
+            if card[k][t] == fields:
+                continue
+            # record: key score seqid evalue qstart qend qlen tstart tend
+            # tlen cigar
+            mine = card[k][t]
+            tie = near_tie(*pair_p(k, t), (mine[7], mine[4], mine[10]),
+                           (fields[7], fields[4], fields[10]))
+            (near if tie[0] else bad).append(
+                dict(query=k, target=t, card=mine, cpu=fields,
+                     card_value=tie[1], cpu_value=tie[2], tolerance=tie[3]))
+    res["check"] = dict(queries=len(cpu),
+                        records=sum(len(v) for v in cpu.values()),
+                        near_ties=near, differ=len(bad),
+                        cpu_s=side["cpu_s"])
+    log(f"fwbw: first {len(cpu)} queries ({res['check']['records']} "
+        f"records) against the CPU side: {len(bad)} differ, near ties "
+        f"{json.dumps(near)}, CPU side {side['cpu_s']:.2f} s (beside "
+        f"phases 12-13)")
+    if bad or len(cpu) != FWBW_CHECK:
+        raise AssertionError(f"fwbw differs on the card and the CPU: "
+                             f"{json.dumps(bad[:5])}")
+    return res
+
+
 def main():
     try:
         import torch
@@ -4330,15 +4885,30 @@ def main():
     with contextlib.ExitStack() as sides:
         check = sides.enter_context(cluster_cpu_check())
         msa_side = sides.enter_context(msa_golden_sides())
+        extra_side, host_side, nucl_side, pm1_side = {}, {}, {}, {}
+        sides.enter_context(cli_cpu_side("fwbw and nucleotide exhaustive",
+                                         extra_cpu_steps(), extra_side))
+        sides.enter_context(cli_cpu_side("search --prefilter-mode 1",
+                                         PM1_CPU_STEPS, pm1_side))
         rows = phase_kernels(rng)
         rrows = phase_rescore_kernel(rng)
         xrows = phase_exhaustive_kernels(rng)
         prows = phase_rescore_profile_kernel()
         erows = phase_expand_kernel()
+        fwrows = phase_fwbw_kernel()
         phase_done(3)
 
         prof = server_profile(rng)
         rcheck = sides.enter_context(real_size_cpu_checks(rng))
+        # this slice's runs on the card beside phase 4 (after phase 3,
+        # whose kernel times are the card's own): the alignx and pairaln
+        # goldens, the nucleotide exhaustive prefilter and its gpuserver
+        sides.enter_context(cli_cpu_side("alignx and pairaln goldens",
+                                         host_extra_steps(), host_side,
+                                         device="cuda"))
+        sides.enter_context(cpu_side("nucleotide exhaustive on the card",
+                                     NUCL_CARD_SIDE, [], nucl_side,
+                                     device="cuda"))
         phase_golden()
         phase_golden_search()
         srv_launches = phase_golden_exhaustive(prof)
@@ -4346,7 +4916,10 @@ def main():
         phase_golden_profile()
         nucl_launches = phase_golden_nucl()
         msa_golden = phase_golden_msa(msa_side)
+        extra = phase_golden_extra()
     msa_golden_check(msa_side, msa_golden)
+    extra_golden_check(extra_side, host_side, nucl_side)
+    pm1_check(pm1_side)
     phase_done(4)
 
     # 5. the align stage alone at real size (its traced rerun went when
@@ -4362,8 +4935,9 @@ def main():
     exh = phase_exhaustive(rcheck)
     phase_done(7)
 
-    # 8. clustering at real size
-    clu = phase_clustering(check)
+    # 8. clustering at real size (easy-linclust of 6,000: a cut for time,
+    # from 10,000, when phase 14 came)
+    clu = phase_clustering(check, n_linclust=6_000)
     phase_done(8)
 
     # 9. the iterative profile search at real size
@@ -4374,21 +4948,30 @@ def main():
     big = phase_large_db(easy)
     phase_done(10)
 
-    # 11. translated search at real size: DNA queries against phase 6's
-    # indexed target DB
-    tr = phase_translated(rcheck)
+    # 11. translated search at real size: 250 DNA queries (a cut for time,
+    # from 500, when phase 14 came) against phase 6's indexed target DB
+    tr = phase_translated(rcheck, n_queries=250)
     phase_done(11)
 
-    # 12. taxonomy at real size: easy-taxonomy against phase 6's indexed
-    # target DB with the synthetic taxonomy attached (500 queries: the
-    # script passed 950 s with 1,000 on a slow host)
-    tax = phase_taxonomy(rcheck, n_queries=500)
-    phase_done(12)
+    # 12-13, while phase 14's CPU side runs (phase 5's first queries; beside
+    # the phases whose host work is mostly one thread)
+    fw_side = {}
+    with fwbw_cpu_side(fw_side):
+        # 12. taxonomy at real size: easy-taxonomy against phase 6's indexed
+        # target DB with the synthetic taxonomy attached (500 queries: the
+        # script passed 950 s with 1,000 on a slow host)
+        tax = phase_taxonomy(rcheck, n_queries=500)
+        phase_done(12)
 
-    # 13. the MSA path at real size: result2msa's realignment (B1),
-    # msa2profile, sequence2profile with a 4,000-context library (B9)
-    msa = phase_msa(rcheck)
-    phase_done(13)
+        # 13. the MSA path at real size: result2msa's realignment (B1),
+        # msa2profile, sequence2profile with a 4,000-context library (B9)
+        msa = phase_msa(rcheck)
+        phase_done(13)
+
+    # 14. fwbw at real size: phase 5's prefilter lists of its first 50
+    # queries (15,000 pairs)
+    fw = phase_fwbw(fw_side)
+    phase_done(14)
 
     # kernels line; launches are those of the run of the path that
     # launches the kernel: easy-search, ungappedprefilter, the server's
@@ -4534,6 +5117,20 @@ def main():
         path_split=big["split"]["posting_expand_path"],
         launches_clustering=clu_launches["posting_expand"],
         launches_iterative=it["launches"]["posting_expand"]))
+    frep = next(r for c, r in fwrows if c["label"] == "commonest")
+    f512 = next(r for c, r in fwrows if c["label"] == "512x512")
+    kern.append(dict(
+        name="fwbw", route="cuda", source="mmseqs2_tpu_torch/csrc/fwbw.cu",
+        replaces="mmseqs2_tpu/ops/fwbw.py:46", launches=fw["launches"],
+        max_abs_err=max(r["max_abs_err"] for _, r in fwrows),
+        ms=frep["ms"], plain_ms=frep["plain_ms"], bound_ms=frep["bound_ms"],
+        bound_by=frep["bound_by"], library_ms=None,
+        equal=all(r["equal"] for _, r in fwrows), at=frep["case"],
+        ms_512=f512["ms"], plain_ms_512=f512["plain_ms"],
+        bound_ms_512=f512["bound_ms"], at_512=f512["case"],
+        path_device_ms=fw["b5_device_ms"], path_pairs=fw["pairs"],
+        path_cells=fw["cells"],
+        launches_golden=extra["launches"]))
     shutil.rmtree(WORK)
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(f"card: {card}")

@@ -663,8 +663,11 @@ def makepaddedseqdb(par, command):
     db, out = par.filenames[:2]
     ALIGN = 4
     reader = DBReader(db)
-    if reader.base_type != dbt.DBTYPE_AMINO_ACIDS:
-        _not_ported("makepaddedseqdb of a nucleotide or profile database")
+    # any sequence DB goes through the amino-acid table, a nucleotide one
+    # too, as the JAX command does (its db_tools.py:659-660)
+    if reader.base_type not in (dbt.DBTYPE_AMINO_ACIDS,
+                                dbt.DBTYPE_NUCLEOTIDES):
+        _not_ported("makepaddedseqdb of a profile database")
     hdr = DBReader(db + "_h")
     submat = get_submat(par.sub_mat.aa, 2.0, 0.0)
     aa2num = submat.make_aa2num_table()

@@ -25,6 +25,7 @@ import socket
 import struct
 
 import numpy as np
+import torch
 
 from ..db import dbtype as dbt
 from ..utils import log
@@ -64,7 +65,7 @@ def _recv(conn):
 class DeviceIndexServer:
     def __init__(self, db_path: str, submat, device=None):
         from ..commands.common import EncodedDB, open_seq_db
-        from ..commands.prefilter_cmd import TargetStore
+        from ..commands.prefilter_cmd import TargetStore, bucket_plan
         from ..device import get_device
 
         self.db_path = db_path
@@ -75,8 +76,19 @@ class DeviceIndexServer:
                     f"{os.path.basename(db_path)} "
                     f"{os.path.basename(db_path)}_pad")
         self.n_targets = reader.size
-        self.store = TargetStore(EncodedDB(reader, submat),
-                                 get_device() if device is None else device)
+        device = torch.device(get_device() if device is None else device)
+        tdb = EncodedDB(reader, submat)
+        _, bucket, order = bucket_plan(tdb)
+        if device.type == "cuda":
+            # the server holds the whole DB, as the JAX package's does
+            free, _ = torch.cuda.mem_get_info(device)
+            if int(bucket.sum()) > 0.8 * free:
+                raise RuntimeError(
+                    f"gpuserver: the padded target DB takes "
+                    f"{int(bucket.sum())} bytes, the card has {free} free; "
+                    f"a server holds the whole DB (run the prefilter "
+                    f"without --gpu 1: it uploads the DB in chunks)")
+        self.store = TargetStore(tdb, device, order)
         log.info(f"Device index resident: {reader.size} targets in "
                  f"{len(self.store.blocks)} length buckets on "
                  f"{self.store.device}")
@@ -222,14 +234,23 @@ def shutdown_server(db_path, timeout=60):
         conn.close()
 
 
-def gpuserver(par, command):
+def server_submat(par, db_path):
+    """The matrix a server encodes its DB with: the amino-acid one at bit
+    factor 2, or for a nucleotide DB the nucleotide one at bit factor 1 (the
+    JAX server's choice; the clients' profiles stay amino-acid ones, so a
+    nucleotide DB scores otherwise through a server than locally)."""
     from ..commands.common import get_sub_mat
     from ..db.reader import DBReader
 
-    db_path = par.filenames[0]
-    if DBReader(db_path).base_type != dbt.DBTYPE_AMINO_ACIDS:
+    base_type = DBReader(db_path).base_type
+    if base_type not in (dbt.DBTYPE_AMINO_ACIDS, dbt.DBTYPE_NUCLEOTIDES):
         raise NotImplementedError(
-            "gpuserver on a nucleotide or profile database is not yet "
-            "ported (see ROADMAP.md)")
-    server = DeviceIndexServer(db_path, get_sub_mat(par))
-    return server.serve()
+            "gpuserver on a profile database is not yet ported (see "
+            "ROADMAP.md)")
+    nucl = base_type == dbt.DBTYPE_NUCLEOTIDES
+    return get_sub_mat(par, nucl=nucl, bit_factor=1.0 if nucl else 2.0)
+
+
+def gpuserver(par, command):
+    db_path = par.filenames[0]
+    return DeviceIndexServer(db_path, server_submat(par, db_path)).serve()

@@ -126,7 +126,7 @@ def test_entry_point_needs_cuda_or_cpu_request(tmp_path, monkeypatch):
 
 
 def test_unported_paths_say_so(tmp_path, on_cpu, capsys):
-    assert cli.main(["fwbw", "a", "b", "c", "d"]) == 1
+    assert cli.main(["rbh", "a", "b", "c", "d"]) == 1
     assert "not yet ported" in capsys.readouterr().err
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["linclust", str(GOLDEN / "qdb"), str(tmp_path / "clu"),

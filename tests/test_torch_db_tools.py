@@ -221,3 +221,25 @@ def test_prefilter_with_prebuilt_index_parity(tmp_path, on_cpu,
         assert got[k] == want[k], k
 
 
+
+
+@pytest.mark.parametrize("extra", [["--mask", "0"],
+                                   ["--mask-lower-case", "1"]])
+def test_makepaddedseqdb_of_a_nucleotide_db_matches_the_jax_command(
+        tmp_path, on_cpu, extra):
+    """A nucleotide DB goes through the amino-acid table, as the JAX
+    command takes it (its db_tools.py:659-660): every file equal."""
+    from mmseqs2_tpu.params import Params
+    from mmseqs2_tpu.registry import get_command
+    ndb = GOLDEN / "nucl" / "ndb"
+    run(["makepaddedseqdb", ndb, tmp_path / "port", *extra])
+    cmd = get_command("makepaddedseqdb")
+    par = Params().parse([str(ndb), str(tmp_path / "jax"), *extra], cmd,
+                         cmd.min_db, cmd.max_db)
+    assert cmd.load()(par, cmd) == 0
+    for suf in ("", ".index", ".dbtype", ".lookup", "_h", "_h.index",
+                "_h.dbtype"):
+        assert ((tmp_path / f"port{suf}").read_bytes()
+                == (tmp_path / f"jax{suf}").read_bytes()), suf
+    with DBReader(str(tmp_path / "port")) as r:
+        assert r.size == 61 and r.base_type == 1      # nucleotides

@@ -188,6 +188,78 @@ def test_makepaddedseqdb_matches_the_jax_command(tmp_path, on_cpu, extra):
                 == (tmp_path / ("jax" + suf)).read_bytes()), suf
 
 
+def two_per_bucket(n_max=200):
+    """Two toy targets of each length bucket (keys ascending), the first
+    n_max targets looked at."""
+    from mmseqs2_tpu_torch.ops.encode import bucket_length
+    with DBReader(str(GOLDEN / "qdb")) as r:
+        seen, keys = {}, []
+        for i in range(min(n_max, r.size)):
+            b = bucket_length(r.get_seq_len(i))
+            if seen.get(b, 0) < 2:
+                seen[b] = seen.get(b, 0) + 1
+                keys.append(r.get_db_key(i))
+    return sorted(keys)
+
+
+@pytest.mark.parametrize("cmd,extra", [
+    ("ungappedprefilter", ["--max-seqs", "3"]),
+    ("gappedprefilter", ["-e", "100", "--max-seqs", "3"]),
+    ("gappedprefilter", ["--add-self-matches", "1"])])
+def test_chunked_run_equals_the_resident_run(tmp_path, on_cpu, monkeypatch,
+                                             cmd, extra):
+    """Past the store budget (a budget under two lanes of the shortest
+    bucket, so that every bucket is split) the targets go up chunk by chunk
+    for each block of queries (two queries a block): the entries equal the
+    run that holds the whole DB, --max-seqs cuts and identity hits
+    included."""
+    keys = two_per_bucket()
+    t = subset_db(tmp_path, keys, "t2b")
+    q = subset_db(tmp_path, [keys[0], keys[3], keys[-1]], "q3")
+    prefilter_cmd.reset_stats()
+    run([cmd, q, t, tmp_path / "resident", *extra])
+    assert prefilter_cmd.STATS["chunks"] == 1
+    from mmseqs2_tpu_torch.commands.common import EncodedDB, open_seq_db
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    lens, bucket, order = prefilter_cmd.bucket_plan(EncodedDB(
+        open_seq_db(t), get_submat("blosum62.out", 2.0, 0.0)))
+    budget = 2 * int(bucket.min()) - 1
+    runs = prefilter_cmd.chunk_plan(bucket, order, budget)
+    for b in set(bucket.tolist()):
+        lanes = np.flatnonzero(bucket[order] == b)
+        assert len({next(i for i, (lo, hi) in enumerate(runs)
+                         if lo <= lane < hi) for lane in lanes}) == len(lanes)
+    monkeypatch.setattr(prefilter_cmd, "STORE_BUDGET", budget)
+    monkeypatch.setattr(prefilter_cmd, "QUERY_BLOCK", 2)
+    prefilter_cmd.reset_stats()
+    run([cmd, q, t, tmp_path / "chunked", *extra])
+    st = prefilter_cmd.STATS
+    assert st["chunks"] == 2 * len(runs) and st["queries"] == 3
+    assert st["store_bytes"] == 2 * int(bucket.sum())
+    got = entries_by_key(tmp_path / "chunked")
+    assert got == entries_by_key(tmp_path / "resident")
+    assert all(got.values())
+
+
+def test_chunk_plan_covers_the_order_within_the_budget():
+    rng = np.random.default_rng(0)
+    bucket = rng.choice([32, 64, 128, 1024], size=300).astype(np.int64)
+    order = np.argsort(bucket, kind="stable")
+    for budget in (None, 10 ** 9, 4096, 1000, 31):
+        runs = prefilter_cmd.chunk_plan(bucket, order, budget)
+        assert runs[0][0] == 0 and runs[-1][1] == len(order)
+        assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+        for lo, hi in runs:
+            assert hi > lo
+            assert (budget is None or hi - lo == 1
+                    or bucket[order[lo:hi]].sum() <= budget)
+        if budget is None or budget >= bucket.sum():
+            assert len(runs) == 1
+        else:       # greedy: a run and the next lane pass the budget
+            for lo, hi in runs[:-1]:
+                assert bucket[order[lo:hi + 1]].sum() > budget
+
+
 @pytest.mark.parametrize("q_len", [50, 64])
 def test_target_store_passes_the_real_lengths(monkeypatch, q_len):
     """The store keeps each bucket's real target lengths in lane order and
@@ -206,13 +278,13 @@ def test_target_store_passes_the_real_lengths(monkeypatch, q_len):
     for block, lens, residues in zip(store.blocks, store.block_lens,
                                      store.block_residues):
         n = block.shape[1]
-        tids = store.order[lane:lane + n]
+        real = store.lens[lane:lane + n]     # lane order: store.tids
         lane += n
         assert lens.dtype == torch.int32 and lens.device == store.device
-        assert lens.tolist() == store.lens[tids].tolist()
+        assert lens.tolist() == real.tolist()
         assert (block != prefilter_cmd.PAD_LETTER).sum(0).tolist() == \
             lens.tolist()
-        assert residues == int(store.lens[tids].sum())
+        assert residues == int(real.sum())
     assert lane == store.n_targets
 
     rng = np.random.default_rng(q_len)

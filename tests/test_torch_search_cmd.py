@@ -276,16 +276,10 @@ QDB = GOLDEN / "qdb"
 UNPORTED = {
     "search --prefilter-mode 3": ["search", QDB, QDB, "{out}", "{tmp}",
                                   "--prefilter-mode", "3"],
-    "ungappedprefilter nucleotide": ["ungappedprefilter", NUCL, NUCL,
-                                     "{out}"],
     "ungappedprefilter profile query": ["ungappedprefilter", PROFILE, QDB,
                                         "{out}"],
     "gappedprefilter profile target": ["gappedprefilter", QDB, PROFILE,
                                        "{out}"],
-    "gappedprefilter nucleotide target": ["gappedprefilter", QDB, NUCL,
-                                          "{out}"],
-    "makepaddedseqdb nucleotide": ["makepaddedseqdb", NUCL, "{out}"],
-    "gpuserver nucleotide": ["gpuserver", NUCL],
     "convertalis html": ["convertalis", QDB, QDB, GOLDEN / "aln", "{out}",
                          "--format-mode", "3"],
 }
@@ -299,6 +293,106 @@ def test_unported_branch_says_so(tmp_path, on_cpu, name):
         cli.main(args)
     assert not (tmp_path / "out").exists()
     assert not (tmp_path / "out.dbtype").exists()
+
+
+def nucl_subset(tmp_path, keys, name):
+    """The golden nucleotide DB (sequences and headers) restricted to
+    `keys`."""
+    out = str(tmp_path / name)
+    for suffix in ("", "_h"):
+        with DBReader(str(NUCL) + suffix) as r, \
+                DBWriter(out + suffix, r.base_type, r.extended_type) as w:
+            for k in keys:
+                w.write(k, r.get_data(r.get_id(k)))
+    return out
+
+
+def run_jax(name, args):
+    from mmseqs2_tpu.params import Params
+    from mmseqs2_tpu.registry import get_command
+    cmd = get_command(name)
+    par = Params().parse([str(a) for a in args], cmd, cmd.min_db, cmd.max_db)
+    assert cmd.load()(par, cmd) == 0
+
+
+def _served(monkeypatch, module, server):
+    """`query_server` of a client module answered by `server` in this
+    process (no socket): both packages' clients import it at call time."""
+    monkeypatch.setattr(module, "query_server",
+                        lambda db, profile, cap, mode, go=11, ge=1, **kw:
+                        server.scan(profile, cap, mode, go, ge))
+
+
+WIDE = ["--min-ungapped-score", "-1", "-e", "1e30"]
+
+
+def _nucl_ungapped(tmp_path, monkeypatch):
+    q = nucl_subset(tmp_path, [0, 5, 9], "nq3")
+    return [["ungappedprefilter", q, NUCL, "{out}"]]
+
+
+def _nucl_gapped(tmp_path, monkeypatch):
+    t = nucl_subset(tmp_path, range(8), "nt8")
+    return [["gappedprefilter", subset_db(tmp_path, [0, 1], "q2"), t,
+             "{out}", *WIDE]]
+
+
+def _nucl_padded(tmp_path, monkeypatch):
+    return [["makepaddedseqdb", NUCL, "{out}"]]
+
+
+def _nucl_server(tmp_path, monkeypatch):
+    """A server of either package on a padded nucleotide DB, as `gpuserver`
+    builds it (the nucleotide matrix at bit factor 1), answering each
+    package's `--gpu 1` client."""
+    from mmseqs2_tpu.commands.common import get_sub_mat as jax_sub_mat
+    from mmseqs2_tpu.params import Params as JaxParams
+    from mmseqs2_tpu.server import device_server as jax_server
+    from mmseqs2_tpu_torch.params import Params
+    from mmseqs2_tpu_torch.server import device_server
+    pad = str(tmp_path / "npad")
+    run(["makepaddedseqdb", nucl_subset(tmp_path, range(8), "nt8"), pad])
+    mine = device_server.DeviceIndexServer(
+        pad, device_server.server_submat(Params(), pad), device="cpu")
+    theirs = jax_server.DeviceIndexServer(
+        pad, jax_sub_mat(JaxParams(), nucl=True, bit_factor=1.0))
+    _served(monkeypatch, device_server, mine)
+    _served(monkeypatch, jax_server, theirs)
+    q = nucl_subset(tmp_path, [0, 5], "nq2")
+    return [["ungappedprefilter", q, pad, "{out}", "--gpu", "1", *WIDE],
+            ["gappedprefilter", q, pad, "{out}_g", "--gpu", "1", *WIDE]]
+
+
+NUCL_BRANCHES = {
+    "ungappedprefilter nucleotide": _nucl_ungapped,
+    "gappedprefilter nucleotide target": _nucl_gapped,
+    "makepaddedseqdb nucleotide": _nucl_padded,
+    "gpuserver nucleotide": _nucl_server,
+}
+
+
+@pytest.mark.parametrize("name", sorted(NUCL_BRANCHES))
+def test_nucleotide_branch_matches_the_jax_package(tmp_path, on_cpu,
+                                                   monkeypatch, name):
+    """The exhaustive prefilter's, makepaddedseqdb's and gpuserver's
+    nucleotide branches give the JAX package's bytes (the amino-acid matrix
+    and gap costs locally, the nucleotide matrix in a server: ROADMAP.md
+    C)."""
+    steps = NUCL_BRANCHES[name](tmp_path, monkeypatch)
+    for side, runner in (("port", run), ("jax", lambda a: run_jax(a[0],
+                                                                   a[1:]))):
+        for step in steps:
+            runner([str(a).format(out=tmp_path / side) for a in step])
+    outs = [""] + (["_g"] if len(steps) > 1 else [])
+    for suffix in outs:
+        got = entries_by_key(f"{tmp_path / 'port'}{suffix}")
+        want = entries_by_key(f"{tmp_path / 'jax'}{suffix}")
+        assert got == want and any(got.values()), suffix
+    if name == "makepaddedseqdb nucleotide":
+        for suf in ("", ".index", ".dbtype", "_h", "_h.index"):
+            assert (pathlib.Path(f"{tmp_path / 'port'}{suf}").read_bytes()
+                    == pathlib.Path(f"{tmp_path / 'jax'}{suf}")
+                    .read_bytes()), suf
 
 
 def test_unported_branch_exits_1(tmp_path):
@@ -315,7 +409,7 @@ def test_unported_branch_exits_1(tmp_path):
     assert "not yet ported (see ROADMAP.md)" in r.stderr
     assert not (tmp_path / "aln.dbtype").exists()
     r = subprocess.run(
-        [sys.executable, "-m", "mmseqs2_tpu_torch", "fwbw", "a", "b", "c",
+        [sys.executable, "-m", "mmseqs2_tpu_torch", "rbh", "a", "b", "c",
          "d"], env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 1 and "not yet ported" in r.stderr
     r = subprocess.run(
