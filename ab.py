@@ -9,6 +9,18 @@ WHAT is one of
            phase_rescore_profile_kernel; the valid count is passed only
            where the tree's diag_rescore takes one);
   expand   its phase-3 cases of posting_expand (phase_expand_kernel);
+  fwbw     its phase-3 cases of B5 (phase_fwbw_kernel), then a batch run
+           of phase 14's shape: 50 queries of phase 5's lengths, 300
+           targets each, in `fwbw`'s batches of consecutive queries (up to
+           fwbw_cmd.BATCH_CELLS cells), B5's device ms summed over the
+           batches (a `fwbw-path` line; unrelated pairs, as most of a
+           prefilter list is; timed only: phase 14 holds the records);
+  fwbw-forms
+           B5 on batches of 32 to 512 related pairs of phase 3's
+           commonest lengths and of 512 x 512, each timed with the warp
+           form up to 512 query residues and up to 256 (a longer query a
+           block of two warps or more), to find where more warps a pair
+           pay (`fwbw-forms` lines; timed only);
   search   phase 6's easy-search, 1,000 queries against 50,000
            SwissProt-like targets from the script's seed (make_scale_data).
 The kernel cases use the same seeded inputs for every tree, each held
@@ -23,7 +35,8 @@ checkout of the repository, such as an older commit unpacked by `git
 archive` into a git-ignored directory; `parent . . parent` compares two
 versions on one card and host. Prints the card's line, then per run an
 `ab WHAT tree` line and chip_smoke.py's case lines (`rescore-case`,
-`rescore-profile-case`, `expand-case`) or a `search-ab` line: the wall,
+`rescore-profile-case`, `expand-case`, `fwbw-case` and `fwbw-path`) or a
+`search-ab` line: the wall,
 the seconds of each step, and the prefilter's own (index build, stage-0
 worker sum, dispatch, wait, write, flushes)."""
 
@@ -102,7 +115,80 @@ def run_search(tree, out):
     chip_smoke.log("search-ab " + json.dumps(res))
 
 
-RUNS = dict(rescore=run_rescore, expand=run_expand, search=run_search)
+def run_fwbw(tree, out):
+    import torch
+    from mmseqs2_tpu_torch.commands.fwbw_cmd import BATCH_CELLS
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    from mmseqs2_tpu_torch.ops import fwbw as F
+    from mmseqs2_tpu_torch.ops import kernels
+    kernels.build("fwbw")
+    chip_smoke.phase_fwbw_kernel()
+    rng = np.random.default_rng(chip_smoke.SEED + 18)
+    submat = get_submat("blosum62.out", 2.0, 0.0)
+    mat = torch.from_numpy(np.asarray(submat.sub_matrix, np.float32)).cuda()
+    n_q, per_q = 50, 300
+    aa_idx = np.array([submat.aa2num[c] for c in chip_smoke.AA])
+
+    def seqs(lens):
+        return [aa_idx[rng.choice(20, size=int(n), p=chip_smoke.PBACK)]
+                for n in lens]
+
+    queries = seqs(chip_smoke.lengths(rng, n_q))
+    targets = seqs(chip_smoke.lengths(rng, n_q * per_q))
+    batches, lo, cells = [], 0, 0
+    for q in range(n_q):
+        need = len(queries[q]) * sum(
+            len(t) for t in targets[q * per_q:(q + 1) * per_q])
+        if q > lo and cells + need > BATCH_CELLS:
+            batches.append((lo, q))
+            lo, cells = q, 0
+        cells += need
+    batches.append((lo, n_q))
+    ms, n_cells, bound = 0.0, 0, 0.0
+    for a, b in batches:
+        pq = np.repeat(np.arange(b - a), per_q)
+        pairs = F.make_pairs(queries[a:b], targets[a * per_q:b * per_q], pq,
+                             range(len(pq)), "cuda")
+        ms += chip_smoke.device_ms(lambda: F.fwbw(pairs, mat), 3)
+        n_cells += pairs.n_cells
+        bound += chip_smoke.fwbw_bound_ms(pairs)[0]
+        del pairs
+        torch.cuda.empty_cache()
+    chip_smoke.log("fwbw-path " + json.dumps(dict(
+        tree=tree, pairs=n_q * per_q, batches=len(batches), cells=n_cells,
+        ms=ms, gcells_per_s=n_cells / ms / 1e6, bound_ms=bound,
+        bound_share=bound / ms)))
+
+
+def run_fwbw_forms(tree, out):
+    import torch
+    from mmseqs2_tpu_torch.data.submat import get_submat
+    from mmseqs2_tpu_torch.ops import fwbw as F
+    from mmseqs2_tpu_torch.ops import kernels
+    kernels.build("fwbw")
+    rng = np.random.default_rng(chip_smoke.SEED + 19)
+    submat = get_submat("blosum62.out", 2.0, 0.0)
+    mat = torch.from_numpy(np.asarray(submat.sub_matrix, np.float32)).cuda()
+    for n in (32, 64, 128, 192, 256, 384, 512):
+        for label, shapes in (
+                ("commonest", rng.integers(250, 351, size=(n, 2))),
+                ("512x512", np.full((n, 2), 512))):
+            qs, ts = chip_smoke.related_pairs(rng, submat, shapes)
+            pairs = F.make_pairs(qs, ts, range(n), range(n), "cuda")
+            ql, tl = pairs.q_len.cpu().numpy(), pairs.t_len.cpu().numpy()
+            row = dict(tree=tree, case=label, pairs=n)
+            for cols in (512, 256):
+                F.WARP_COLS, default = cols, F.WARP_COLS
+                pairs.plan = F.launch_plan(ql, tl, "cuda")
+                F.WARP_COLS = default
+                row[f"warp_cols_{cols}"] = dict(
+                    ms=chip_smoke.device_ms(lambda: F.fwbw(pairs, mat), 7),
+                    forms=pairs.plan.forms())
+            chip_smoke.log("fwbw-forms " + json.dumps(row))
+
+
+RUNS = {"rescore": run_rescore, "expand": run_expand, "search": run_search,
+        "fwbw": run_fwbw, "fwbw-forms": run_fwbw_forms}
 
 
 def warm_score_tables():

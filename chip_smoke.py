@@ -48,8 +48,10 @@ caught. Phases, each printing lines before the last:
      fits the L2, and a real flush of 128 toy queries on the toy DB's
      index), with GB/s and its share of the byte bound; and fwbw (B5, the
      forward-backward alignment) at phase 14's commonest lengths (512
-     pairs of 250-350 residues), at 512 x 512 and on a ragged batch with
-     1 x 700, 700 x 1 and 2,000 x 2,000 edges: P within rtol 1e-4, atol
+     pairs of 250-350 residues), at 512 x 512, on a ragged batch with
+     1 x 700 and 700 x 1 edges and at the edge of its warp and block
+     forms (256 pairs of 512 and 513 residues), each with the forms its
+     pairs took: P within rtol 1e-4, atol
      1e-7 of the plain version's, the kernel's MAC fed the plain P equal
      to the plain MAC bit for bit, and end to end each pair's first
      maximum and cigar equal but where the two alignments tie under the
@@ -1612,8 +1614,11 @@ def fwbw_row(label, pairs, mat, reps=5):
         (near if tie[0] else bad).append((b, *tie[1:]))
     ms = device_ms(lambda: F.fwbw(pairs, mat), reps)
     bound, by = fwbw_bound_ms(pairs)
+    # the kernel forms the pairs took (trees before the launch plan: none)
+    plan = getattr(pairs, "plan", None)
+    forms = plan.forms() if plan else None
     row = dict(case=f"{label}: {pairs.size} pairs, {pairs.n_cells} cells, "
-               f"longest query {pairs.max_q}", p_close=p_close,
+               f"longest query {pairs.max_q}", forms=forms, p_close=p_close,
                max_abs_err=err, mac_fed_plain_p_equal=fed_equal,
                pairs_near_tie=len(near), pairs_differ=len(bad),
                equal=p_close and fed_equal and not bad, ms=ms,
@@ -1635,10 +1640,13 @@ def fwbw_row(label, pairs, mat, reps=5):
 def phase_fwbw_kernel():
     """B5 against its plain version at phase 14's commonest lengths (512
     related pairs, query and target 250-350 residues: phase 5's median is
-    292), at 512 x 512 (64 pairs), and on a ragged batch of 30 pairs of
-    phase 5's length distribution (50-2,000) with the edges 1 x 700 and
-    700 x 1, with the command's matrix (BLOSUM62 at bit factor 2). From its own generator, so that the later phases' data stay those
-    of the earlier runs."""
+    292), at 512 x 512 (64 pairs), on a ragged batch of 30 pairs of phase
+    5's length distribution (50-2,000) with the edges 1 x 700 and 700 x 1,
+    and at the edge of the kernel's two forms (128 pairs of 512-residue
+    queries, a warp each, and 128 of 513, a block each; targets 100-200),
+    with the command's matrix (BLOSUM62 at bit factor 2). From its own
+    generator, so that the later phases' data stay those of the earlier
+    runs."""
     import torch
     from mmseqs2_tpu_torch.data.submat import get_submat
     from mmseqs2_tpu_torch.ops import fwbw as F
@@ -1650,7 +1658,9 @@ def phase_fwbw_kernel():
         ("commonest", rng.integers(250, 351, size=(512, 2))),
         ("512x512", np.full((64, 2), 512)),
         ("ragged", np.concatenate([lengths(rng, 60).reshape(30, 2),
-                                   [[1, 700], [700, 1]]]))]
+                                   [[1, 700], [700, 1]]])),
+        ("threshold", np.stack([rng.integers(100, 201, size=256),
+                                np.repeat([512, 513], 128)], 1))]
     rows = []
     for label, shapes in cases:
         qs, ts = related_pairs(rng, submat, shapes)
@@ -5128,6 +5138,7 @@ def main():
         equal=all(r["equal"] for _, r in fwrows), at=frep["case"],
         ms_512=f512["ms"], plain_ms_512=f512["plain_ms"],
         bound_ms_512=f512["bound_ms"], at_512=f512["case"],
+        forms={c["label"]: r["forms"] for c, r in fwrows},
         path_device_ms=fw["b5_device_ms"], path_pairs=fw["pairs"],
         path_cells=fw["cells"],
         launches_golden=extra["launches"]))

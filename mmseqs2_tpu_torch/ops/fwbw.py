@@ -24,11 +24,15 @@ strictly largest cell.
   fwbw        the wrapper: CUDA tensors go to the hand-written kernels
               (csrc/fwbw.cu, built at first use), CPU tensors to the plain
               version; anything else raises. `fwbw.launches` counts calls
-              that launched the kernels (the two passes of one call are one
-              B5 launch).
+              that launched the kernels (the two launches of one call, the
+              partition function's and P with the MAC's, are one B5
+              launch).
   fwbw_plain  the same function in plain PyTorch, row by row as the JAX
               package computes it, on any device; the tests and the CPU
               route use it, the card's path does not.
+  launch_plan the kernels' plan of a batch, on the host: a warp a pair for
+              queries of at most WARP_COLS residues, a block a pair past
+              it, each form's pairs by target length, longest first.
 
 A batch of pairs (PairBatch) is ragged: the residues (uint8 codes below the
 matrix's size) of every query and target concatenated, each pair's query
@@ -38,10 +42,16 @@ share one query's residues.
 
 Numerics. The MAC DP evaluates `_mac`'s expressions in its order (base + jc
 + c, the running max, run - jc - c, the floor), so the same P gives the same
-states, score and first maximum bit for bit in both versions. The partition
-function's sums are taken in another order than XLA's (the in-row scan of
-ze, the logsumexp), so P agrees to a relative 1e-4 (f32 rounding through a
-log of a few hundred; tests/test_torch_fwbw.py).
+states, score and first maximum bit for bit in both versions. The kernels'
+partition function keeps the row scaling (the row's zm maximum, floored at
+1e-37, its log added to the offset as the plain version adds it; the three
+divisions a cell give the division's bits, from one reciprocal a row) and
+log zm + offset and P's expression as the plain version rounds them, but
+takes the in-row scan of ze in another order than XLA's and the logsumexp
+of log zm_f online, a row at a time (its terms exp(log zm_f - R) for a
+reference R that moves with the offsets, summed in f64); P agrees to a
+relative 1e-4 (f32 rounding through a log of a few hundred;
+tests/test_torch_fwbw.py).
 """
 
 import ctypes
@@ -56,13 +66,26 @@ STOP, M, I, D = 0, 1, 2, 3
 # substitution matrix of at most MAX_ALPHA letters
 MAX_Q = 16384
 MAX_ALPHA = 32
+# the launch plan (csrc/fwbw.cu): a warp takes a pair whose query has at
+# most WARP_COLS residues (8, 12 or 16 columns a lane); a longer one takes
+# a block of wb warps, 8 columns a lane while the launch's longest such
+# query has at most 2,048 residues, 16 up to BLOCK_WARPS[KMAX] warps (4,096
+# residues), and past that 32 (KMAX_WIDE) up to BLOCK_WARPS[KMAX_WIDE]; a
+# block holds WARPS_PER_BLOCK warp-form pairs, or as many as a block-form
+# block's warps
+WARP_COLS = 512
+KMAX, KMAX_WIDE = 16, 32
+BLOCK_WARPS = {KMAX: 8, KMAX_WIDE: 16}
+WARPS_PER_BLOCK = 4
 
 
 @dataclass
 class PairBatch:
     """Ragged (query, target) pairs on one device (see the module
     docstring): q_res, t_res (n,) uint8; q_off, t_off, cell_off (B,) int64;
-    q_len, t_len (B,) int32; n_cells and max_q host ints."""
+    q_len, t_len (B,) int32; n_cells and max_q host ints; plan the kernels'
+    LaunchPlan, built by make_pairs from its host lengths (None past MAX_Q,
+    where the kernels raise)."""
     q_res: torch.Tensor
     q_off: torch.Tensor
     q_len: torch.Tensor
@@ -72,6 +95,7 @@ class PairBatch:
     cell_off: torch.Tensor
     n_cells: int
     max_q: int
+    plan: "LaunchPlan"
 
     @property
     def size(self):
@@ -111,7 +135,63 @@ def make_pairs(queries, targets, pair_q, pair_t, device):
         q_len=dev(ql, torch.int32), t_res=dev(t_res, torch.uint8),
         t_off=dev(t_off[pair_t], torch.int64), t_len=dev(tl, torch.int32),
         cell_off=dev(cell_off, torch.int64), n_cells=int(cells.sum()),
-        max_q=int(ql.max()) if len(ql) else 0)
+        max_q=int(ql.max()) if len(ql) else 0,
+        plan=(launch_plan(ql, tl, device) if not len(ql)
+              or int(ql.max()) <= MAX_Q else None))
+
+
+@dataclass
+class LaunchPlan:
+    """The kernels' plan of a batch: order (B,) int32 lists the pairs, the
+    first n_block of them a block of wb warps each, the rest a warp each,
+    wb to a block; kmax the columns a lane holds at most (16 or 32);
+    blocks the launch's blocks (a direction); order_dev the order on the
+    batch's device."""
+    order: np.ndarray
+    n_block: int
+    wb: int
+    kmax: int
+    blocks: int
+    warp_cols: int = WARP_COLS
+    order_dev: torch.Tensor = None
+
+    def forms(self):
+        """Pairs by form, and the block form's warps."""
+        return dict(warp=len(self.order) - self.n_block,
+                    block=self.n_block, block_warps=self.wb
+                    if self.n_block else 0, kmax=self.kmax,
+                    warp_cols=self.warp_cols)
+
+
+def launch_plan(q_len, t_len, device=None):
+    """The launch plan of pairs of these lengths (host arrays): a pair whose
+    query has at most WARP_COLS residues to a warp, a longer one to a block
+    of wb warps, enough for the longest such query at 8, 16 or 32 columns a
+    lane (see WARP_COLS); within each form the pairs by target length,
+    longest first (then by query length), so that the longest chains of
+    rows start first. Given a device, the order is copied there too."""
+    q_len = np.asarray(q_len, dtype=np.int64)
+    t_len = np.asarray(t_len, dtype=np.int64)
+    if len(q_len) and int(q_len.max()) > MAX_Q:
+        raise ValueError(f"fwbw: the kernel takes queries of at most {MAX_Q} "
+                         f"residues, got {int(q_len.max())}")
+    long_q = q_len > WARP_COLS
+
+    def by_target(idx):
+        return idx[np.lexsort((-q_len[idx], -t_len[idx]))]
+
+    blocks = by_target(np.flatnonzero(long_q))
+    warps = by_target(np.flatnonzero(~long_q))
+    longest = int(q_len[blocks].max()) if len(blocks) else 0
+    kmax = KMAX if longest <= BLOCK_WARPS[KMAX] * 32 * KMAX else KMAX_WIDE
+    lane_cols = 8 if longest <= BLOCK_WARPS[KMAX] * 32 * 8 else kmax
+    wb = -(-longest // (32 * lane_cols)) if len(blocks) else WARPS_PER_BLOCK
+    order = np.concatenate([blocks, warps]).astype(np.int32)
+    return LaunchPlan(order=order, n_block=len(blocks), wb=wb, kmax=kmax,
+                      blocks=len(blocks) + -(-len(warps) // wb),
+                      warp_cols=WARP_COLS,
+                      order_dev=None if device is None
+                      else torch.from_numpy(order).to(device))
 
 
 def constants(go, ge, temp, mact):
@@ -353,9 +433,12 @@ def fwbw(pairs, mat, go=-10.0, ge=-2.0, temp=1.0, mact=0.035, p_in=None,
         out["p"] = torch.empty(n, dtype=f32, device=dev)
     if B == 0:
         return out
+    plan = pairs.plan
+    lf = lb = lse = None
     if p_in is None:
-        logf = torch.empty(n, dtype=f32, device=dev)
-        logb = torch.empty(n, dtype=f32, device=dev)
+        lf = torch.empty(n, dtype=f32, device=dev)
+        lb = torch.empty(n, dtype=f32, device=dev)
+        lse = torch.empty(B, dtype=f32, device=dev)
     lib = _lib()
     ptr = lambda t: t.data_ptr() if t is not None else None   # noqa: E731
     with torch.cuda.device(dev):
@@ -363,12 +446,12 @@ def fwbw(pairs, mat, go=-10.0, ge=-2.0, temp=1.0, mact=0.035, p_in=None,
         err = lib.fwbw_launch(
             ptr(pairs.q_res), ptr(pairs.q_off), ptr(pairs.q_len),
             ptr(pairs.t_res), ptr(pairs.t_off), ptr(pairs.t_len),
-            ptr(pairs.cell_off), B, pairs.max_q, ptr(mat), mat.shape[0],
-            k["ego"], k["ege"], k["temp"], k["m"], k["c"],
-            None if p_in is not None else logf.data_ptr(),
-            None if p_in is not None else logb.data_ptr(),
-            ptr(p_in), ptr(out.get("p")), ptr(out["bt"]), ptr(out["score"]),
-            ptr(out["bi"]), ptr(out["bj"]), ptr(out["maxp"]), stream)
+            ptr(pairs.cell_off), B, ptr(plan.order_dev), plan.n_block, plan.wb,
+            plan.kmax, ptr(mat), mat.shape[0], k["ego"], k["ege"], k["temp"],
+            k["m"], k["c"], ptr(lf), ptr(lb), ptr(lse), ptr(p_in),
+            ptr(out.get("p")),
+            ptr(out["bt"]), ptr(out["score"]), ptr(out["bi"]),
+            ptr(out["bj"]), ptr(out["maxp"]), stream)
     if err != 0:
         raise RuntimeError(f"fwbw kernel launch failed: CUDA error {err}")
     fwbw.launches += 1
@@ -386,9 +469,9 @@ def _lib():
         from .kernels import load
         lib = load("fwbw")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fwbw_launch.argtypes = [p, p, p, p, p, p, p, i, i, p, i,
-                                    f, f, f, f, f, p, p, p, p, p, p, p, p, p,
-                                    p]
+        lib.fwbw_launch.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, p,
+                                    i, f, f, f, f, f, p, p, p, p, p, p, p, p,
+                                    p, p, p]
         lib.fwbw_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB

@@ -247,25 +247,170 @@ def test_fwbw_loads_no_jax(tmp_path):
     assert "LOADED []" in r.stdout
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 64), (300, 292), (1, 700)])
-def test_kernel_matches_the_plain_version(shape):
-    """B5 on the card against its plain version on the card: P within the
-    stated tolerance; the kernel's MAC fed the plain P gives the plain
-    version's states, score and maximum bit for bit."""
+def test_launch_plan_covers_every_pair_once(monkeypatch):
+    """The kernels' launch plan: every pair in exactly one form (a warp for
+    queries of at most WARP_COLS residues, a block past it), each form by
+    target length, longest first, and the kernels' indexing (the first
+    n_block blocks a pair each, then wb pairs a block) reaching every pair
+    once, so that outputs written by pair index come back in input order."""
+    rng = np.random.default_rng(4)
+    q = np.concatenate([rng.integers(1, 513, 252), [512, 513, 1, 2000]])
+    t = rng.integers(1, 900, len(q))
+    plan = F.launch_plan(q, t)
+    order = plan.order
+    assert sorted(order.tolist()) == list(range(len(q)))
+    blocks, warps = order[:plan.n_block], order[plan.n_block:]
+    assert plan.warp_cols == F.WARP_COLS
+    assert set(blocks.tolist()) == set(np.flatnonzero(q > F.WARP_COLS))
+    for part in (blocks, warps):
+        assert (np.diff(t[part]) <= 0).all()
+    assert plan.kmax == F.KMAX and plan.wb == -(-2000 // (32 * 8))
+    assert (q[blocks] <= 32 * 8 * plan.wb).all()
+    seen = []
+    for b in range(plan.blocks):
+        if b < plan.n_block:
+            seen.append(order[b])
+            continue
+        for w in range(plan.wb):
+            idx = plan.n_block + (b - plan.n_block) * plan.wb + w
+            if idx < len(q):
+                seen.append(order[idx])
+    assert sorted(seen) == list(range(len(q)))
+    assert plan.forms() == dict(warp=len(warps), block=len(blocks),
+                                block_warps=plan.wb, kmax=plan.kmax,
+                                warp_cols=F.WARP_COLS)
+    # a small batch takes the same forms; WARP_COLS moves their edge
+    small = F.launch_plan(q[:40], t[:40])
+    assert small.warp_cols == F.WARP_COLS
+    assert set(small.order[:small.n_block].tolist()) == set(
+        np.flatnonzero(q[:40] > F.WARP_COLS))
+    with monkeypatch.context() as m:
+        m.setattr(F, "WARP_COLS", 256)
+        half = F.launch_plan(q[:40], t[:40])
+    assert half.warp_cols == 256
+    assert set(half.order[:half.n_block].tolist()) == set(
+        np.flatnonzero(q[:40] > 256))
+    # no long query: 4 warp-form pairs a block; one past 4,096 columns:
+    # 32 columns a lane
+    short = F.launch_plan([5, 200], [7, 7])
+    assert (short.n_block, short.wb, short.blocks) == (0, F.WARPS_PER_BLOCK,
+                                                      1)
+    wide = F.launch_plan([9000, 600, 100], [3, 8, 1])
+    assert (wide.kmax, wide.wb, wide.n_block) == (F.KMAX_WIDE, 9, 2)
+    assert wide.order.tolist() == [1, 0, 2]
+    mid = F.launch_plan([3000, 600], [3, 8])      # past 2,048: 16 a lane
+    assert (mid.kmax, mid.wb) == (F.KMAX, 6)
+    longest = F.launch_plan([F.MAX_Q, 12289], [3, 4])
+    assert (longest.kmax, longest.wb) == (F.KMAX_WIDE,
+                                          F.BLOCK_WARPS[F.KMAX_WIDE])
+    with pytest.raises(ValueError, match="at most"):
+        F.launch_plan([F.MAX_Q + 1], [3])
+
+
+def test_make_pairs_plans_the_launch():
+    """make_pairs builds the plan from its host lengths (the wrapper then
+    copies nothing from the card); past MAX_Q it builds none (the plain
+    version takes any length)."""
+    qs, ts, _ = random_pairs(6, [(5, 9), (7, 600)])
+    pairs = F.make_pairs(qs, ts, [1, 0], [0, 1], "cpu")
+    assert pairs.q_len.tolist() == [600, 9]     # 600 > WARP_COLS
+    assert pairs.plan.order.tolist() == [0, 1] and pairs.plan.n_block == 1
+    assert pairs.plan.order_dev.tolist() == [0, 1]
+    long_q = [np.zeros(F.MAX_Q + 1, np.int64)]
+    assert F.make_pairs(long_q, ts[:1], [0], [0], "cpu").plan is None
+
+
+def kernel_against_plain(shapes, seed=5, related=False, **params):
+    """B5 on the card against its plain version on the card for one batch
+    of (tlen, qlen) pairs, in the given order, with fwbw's params (go, ge,
+    temp, mact; the defaults if none): P within the stated tolerance; the
+    kernel's MAC fed the plain P gives the plain version's states, score
+    and maximum bit for bit, and hands that P back with want_p."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from mmseqs2_tpu_torch.data.submat import get_submat
     # the command's matrix: a matrix of positive mean makes the f32
     # partition function of long pairs lose its precision in both versions
-    qs, ts, _ = random_pairs(5, [shape, (shape[1], shape[0]), (37, 41)])
+    qs, ts, _ = random_pairs(seed, shapes)
+    if related:       # pairs that align, so that P has long runs near 1
+        for b, (tl, ql) in enumerate(shapes):
+            t = np.resize(qs[b], tl).copy()
+            mut = np.random.default_rng(seed + b).random(tl) < 0.3
+            t[mut] = ts[b][mut]
+            ts[b] = t
     mat = np.asarray(get_submat("blosum62.out", 2.0, 0.0).sub_matrix,
                      np.float32)
-    pairs = F.make_pairs(qs, ts, range(3), range(3), "cuda")
+    pairs = F.make_pairs(qs, ts, range(len(qs)), range(len(qs)), "cuda")
     m = torch.from_numpy(mat).cuda()
-    want = F.fwbw_plain(pairs, m, want_p=True)
-    got = F.fwbw(pairs, m, want_p=True)
+    want = F.fwbw_plain(pairs, m, want_p=True, **params)
+    got = F.fwbw(pairs, m, want_p=True, **params)
     torch.testing.assert_close(got["p"], want["p"], rtol=1e-4, atol=1e-7)
-    fed = F.fwbw(pairs, m, p_in=want["p"])
-    for k in ("bt", "score", "bi", "bj", "maxp"):
+    fed = F.fwbw(pairs, m, p_in=want["p"], want_p=True, **params)
+    for k in ("bt", "score", "bi", "bj", "maxp", "p"):
         assert torch.equal(fed[k], want[k]), k
+    fed = F.fwbw(pairs, m, p_in=want["p"], **params)
+    assert "p" not in fed and torch.equal(fed["bt"], want["bt"])
+    return pairs.plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64), (300, 292), (1, 700),
+                                   (200, 512), (200, 513), (50, 1),
+                                   (1, 1)])
+def test_kernel_matches_the_plain_version(shape):
+    """A pair of each shape, its transpose and a 37 x 41 pair: the warp
+    form (queries up to 512), the block form (513 and past), a query and
+    a target of one residue."""
+    kernel_against_plain([shape, (shape[1], shape[0]), (37, 41)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["shortest_first", "both_forms",
+                                  "related", "wide", "past_12288", "max_q",
+                                  "large_batch"])
+def test_kernel_forms_and_order(case):
+    """Batches the plan reorders: targets shortest first, both forms in one
+    launch with several warps a block, related pairs in both forms, a query
+    past 4,096 residues (32 columns a lane), past 12,288 (13 warps) and of
+    MAX_Q residues (16 warps, the most shared memory a block takes), and a
+    batch of 256 pairs at the warp form's edge (queries of 512 residues a
+    warp, 513 a block; 8, 12 and 16 columns a lane)."""
+    if case == "shortest_first":
+        plan = kernel_against_plain([(5, 200), (60, 190), (200, 210),
+                                     (400, 205), (401, 1)])
+        assert plan.order.tolist() == [4, 3, 2, 1, 0]
+    elif case == "both_forms":
+        plan = kernel_against_plain([(30, 512), (90, 513), (20, 1100),
+                                     (120, 256), (7, 257), (64, 40)])
+        assert plan.forms()["block"] == 4 and plan.wb == 5
+    elif case == "related":
+        plan = kernel_against_plain([(250, 260), (300, 700), (80, 90)],
+                                    related=True)
+        assert plan.forms()["block"] == 2
+    elif case == "wide":
+        plan = kernel_against_plain([(12, 8300), (9, 40), (30, 4100)])
+        assert plan.kmax == F.KMAX_WIDE
+    elif case == "past_12288":
+        plan = kernel_against_plain([(15, 12289), (3, 5000), (20, 30)])
+        assert (plan.kmax, plan.wb) == (F.KMAX_WIDE, 13)
+    elif case == "max_q":
+        plan = kernel_against_plain([(20, F.MAX_Q), (9, 40)])
+        assert (plan.kmax, plan.wb) == (F.KMAX_WIDE,
+                                        F.BLOCK_WARPS[F.KMAX_WIDE])
+    else:
+        q = np.resize([512, 513, 384, 300, 100], 256)
+        t = np.resize([40, 7, 61, 1, 33, 50], 256)
+        plan = kernel_against_plain(list(zip(t, q)))
+        assert plan.warp_cols == F.WARP_COLS
+        assert plan.forms()["block"] == int((q > F.WARP_COLS).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ge,temp", [(-1.0, 2.0), (-1.0, 10.0)])
+@pytest.mark.parametrize("shapes", [[(60, 700), (40, 300), (30, 1500)],
+                                    [(20, 5000), (9, 600)]])
+def test_kernel_gap_extend_and_temperature(shapes, ge, temp):
+    """Another gap extension and temperature than the defaults, where
+    e^{ge/T} to a warp's columns (255 and more) does not underflow to 0:
+    both forms at 8 columns a lane, and the 32-column form."""
+    kernel_against_plain(shapes, ge=ge, temp=temp)
