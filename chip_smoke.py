@@ -64,7 +64,8 @@ caught. Phases, each printing lines before the last:
      the port's `prefilter` of the toy set against itself equals the golden
      at the default sensitivity on all 500 queries (at -s 5.7: the
      iterative search's first prefilter, below), and
-     `easy-search QUERY.fasta QUERY.fasta` equals golden_self.m8;
+     `easy-search` of the toy's first 100 queries against QUERY.fasta
+     equals their lines of golden_self.m8 (a cut for time, from all 500);
      `ungappedprefilter` of the toy set against itself equals the golden
      `upref` on all 500 queries, `makepaddedseqdb` the golden padded DB
      byte for byte; with a `gpuserver` (a subprocess) on that padded DB,
@@ -78,7 +79,10 @@ caught. Phases, each printing lines before the last:
      `kmermatcher` (v1 and three v2 flag sets), `linclust` and `cluster`
      with --linclust-version 1 equal their goldens (clu*, resc*, kmpref,
      km_*, linclu, casclu), and `prefilter` of the toy set against a
-     `createindex` index equals the run without one. The profile search:
+     `createindex` index equals the run without one. The profile search
+     (in a subprocess with the card selected, at the main thread's
+     priority, beside the main thread's goldens: a cut for time, when
+     phase 15 came):
      `result2profile` (profdb), `search qdb qdb --num-iterations 2` with
      each step's output against its golden (it_pref_0, it_aln_0,
      it_profile_0, it_pref_tmp_1, it_pref_1, it_aln_tmp_1) and its result
@@ -86,8 +90,8 @@ caught. Phases, each printing lines before the last:
      for time: its new step, result2profile of profile queries, launches
      no kernel); `search`
      against profile targets (tprofile/refout) and `search
-     --exhaustive-search` (sliced/refout, refout2); `search
-     --num-iterations 2` of the toy's first 25 queries against its first
+     --exhaustive-search` (sliced/refout, refout2); in the main thread,
+     `search --num-iterations 2` of the toy's first 25 queries against its first
      250 equal on the card and the CPU, byte for byte. Nucleotide DBs
      (tests/golden/nucl): `search ndb ndb --search-type 3` (blastn: the
      host prefilter of exact 15-mers and the banded ksw2 aligner) equals
@@ -101,8 +105,9 @@ caught. Phases, each printing lines before the last:
      exp_aln_rescore and efc, expand2profile exp_prof, filtera3m,
      msa2result, result2msa --allow-deletion, convertca3m, profile2neff,
      convertmsa, convertprofiledb, tsv2exprofiledb), each on its whole toy
-     input in a subprocess with the card selected (host code: they launch
-     nothing); and on the card `result2msa` of the toy's alignments with
+     input but msa2profile and expand2profile (the first 100 MSAs and
+     queries, entry by entry: a cut for time, when phase 15 came) in a
+     subprocess with the card selected (host code: they launch nothing); and on the card `result2msa` of the toy's alignments with
      their backtraces stripped (the realignment through sw_multi) and
      `enrich` of three toy queries (one iteration), both equal byte for
      byte to a CPU run beside them (these sides start with phase 3).
@@ -117,12 +122,21 @@ caught. Phases, each printing lines before the last:
      queries gapped against it, makepaddedseqdb of it, and a gpuserver on
      that padded DB whose --gpu 1 run equals the run without a server) in
      a subprocess on the card (these start after phase 3), equal to a CPU
-     run (started with phase 3). The
+     run (started with phase 3). The search workflows' goldens
+     (tests/golden/{multihit,maprbh,linsearch,proteome}: besthitperset,
+     combinepvalperset, mergeresultsbyset, multihitdb and multihitsearch,
+     map, rbh, linsearch with its .linidx, proteomecluster with one
+     align_batch for its two rounds, parseproteomealignments) byte for
+     byte, in a subprocess with the card selected (the searches, linsearch
+     and proteomecluster launch sw_multi there, the searches diag_rescore
+     too). The
      CPU sides of
-     phases 6, 7, 8 (started with phase 3), 9, 11, 12 and 13 run in
+     phases 6, 7, 8 (started with phase 3), 9, 11, 12, 13 and 15 run in
      subprocesses
      at the lowest priority (nice 19: the card's runs keep the host's
-     cores) during this phase, which is correctness only: none of its
+     cores; the real-size sides on half the queries they held before
+     phase 15 came, a cut for time) during this phase, which is
+     correctness only: none of its
      seconds is
      a metric, and the phase ends by waiting for them, so that nothing
      measured after it runs beside them
@@ -142,7 +156,7 @@ caught. Phases, each printing lines before the last:
      wall time, queries/s, the split of the wall, the queries that took the
      host-oracle route (and no posting_expand launch: up to 2^22 targets
      the postings expand on the host), the hits, sw_multi's launches by form and its
-     computed cells against those needed; the first 32 queries' lines equal
+     computed cells against those needed; the first 16 queries' lines equal
      phase 4's run of them with the CPU requested. Beside the main path,
      not in its place: `createindex -s 5.7` of the target DB and
      easy-search against it, as bench.py does (the index build's seconds
@@ -160,7 +174,7 @@ caught. Phases, each printing lines before the last:
      the split of the wall (upload, kernels by CUDA events, waiting for
      read-backs, host filter and write), launches (by kernel form) and
      read-backs per query, cells needed, padded and computed;
-     the first 32 queries held against phase 4's run with the CPU requested
+     the first 16 queries held against phase 4's run with the CPU requested
      on the first 500 targets (a cut for time: every hit of the card's run on
      those targets must be the CPU's, and every CPU hit that ranks inside
      the card's list must be in it); once more under torch.profiler for the
@@ -175,15 +189,15 @@ caught. Phases, each printing lines before the last:
      chunks: chunks, bytes and seconds of the uploads, and every entry
      equal to the resident runs';
   8. clustering at real size, on phase 5's targets: `easy-linclust` of the
-     first 6,000 with the defaults, and `easy-cluster` of the first 2,000
+     first 6,000 with the defaults, and `easy-cluster` of the first 1,000
      (cuts for time) at MMseqs2's README parameters (--min-seq-id 0.5 -c 0.8
      --cov-mode 1), every kernel's count set to 0 just before each and read
      just after: wall, sequences/s, clusters, the wall by step,
      align2clust's gapped calls with their sw_multi launches (by form) and
      read-backs, and each round's prefilter route (card or host), index
      seconds and launches; each output a full assignment; then both
-     commands on a check set made from its own generator, 1,000 sequences
-     of the same recipe (a cut for time) and 100 planted near-duplicates
+     commands on a check set made from its own generator, 500 sequences
+     of the same recipe (a cut for time) and 50 planted near-duplicates
      of them (2% substitutions, two thirds of them with one indel of 1-3
      letters, so that align2clust accepts pairs through its gapped
      fallback and through its ungapped rescore, both checked), whose
@@ -205,7 +219,7 @@ caught. Phases, each printing lines before the last:
      ruled out int16) and read-backs, and result2profile's, subtractdbs'
      and mergedbs' seconds; iteration 1's profile-query prefilter and
      align under torch.profiler in that run (their seconds include what
-     tracing costs); the first 16 queries' entries equal phase 4's CPU
+     tracing costs); the first 8 queries' entries equal phase 4's CPU
      subprocess's (by query name);
  10. large target DBs: one real flush of 128 queries on phase 6's index
      through the route past the packed key (the postings expand on the
@@ -229,7 +243,7 @@ caught. Phases, each printing lines before the last:
      extractorfs, prefilter, align, offsetalignment and convertalis, the
      launches of diag_rescore and sw_multi and their device time; the share
      of the queries whose best target is phase 6's for the protein query;
-     the first 32 queries' lines equal to phase 4's CPU side's, by name;
+     the first 16 queries' lines equal to phase 4's CPU side's, by name;
  12. taxonomy at real size: `createtaxdb` of phase 6's target DB with a
      synthetic NCBI taxonomy from the seed (write_taxonomy: a species a
      planted family, about four taxa to each parent up to two
@@ -241,7 +255,7 @@ caught. Phases, each printing lines before the last:
      every kernel's count set to 0 just before and read just after: wall,
      queries/s, step seconds, the prefilter's and lcaalign's launches and
      read-backs, lcaalign's pairs by wave, the assignments by rank and
-     against the planted species; the first 32 queries' _lca.tsv and
+     against the planted species; the first 16 queries' _lca.tsv and
      _tophit_aln lines equal to phase 4's CPU side's, by name;
  13. the MSA path at real size (phase_msa): `result2msa` of the first 250
      queries of phase 5's prefilter lists (300 candidates a query, no
@@ -254,7 +268,7 @@ caught. Phases, each printing lines before the last:
      count set to 0 just before each: seconds, pairs, sw_multi launches
      by form, read-backs, B1's and B9's device seconds (CUDA events), the
      busy share; B9 timed at the path's padded length against its f32
-     bound; the first 16 queries' MSA and profile entries equal to phase
+     bound; the first 8 queries' MSA and profile entries equal to phase
      4's CPU side's, B9's probabilities to the CPU's within rtol 1e-5,
      atol 1e-6;
  14. fwbw at real size (phase_fwbw): `fwbw` of phase 5's prefilter lists
@@ -266,9 +280,25 @@ caught. Phases, each printing lines before the last:
      their MAC values there within 1e-5 plus what rounding can move them
      (the two runs' P difference over their cells, the f32 DP's rounding;
      a near tie, printed);
+ 15. the search workflows at a size their users run (phase_workflows, on
+     sets from their own generator with phase 5's recipe): `easy-rbh` of
+     two proteome-like sets of 2,000 sequences that share families,
+     `easy-proteomecluster` of 8 proteomes of 500 proteins (families at
+     1-5% mutation, a family's members in the proteomes at random) through
+     the default linclust module, `easy-linsearch` of the first 250 of phase
+     5's queries against its first 10,000 targets (a cut for time), each
+     traced (the card's activity only) with every kernel's count set to 0
+     just before and read just after: wall, each step's seconds, launches
+     and read-backs, B1's device ms (CUDA events) and B4's (the trace), the
+     busy share, proteome.STATS (at most one align_batch a round), the
+     share of the RBH pairs inside a planted family; then easy-rbh of the
+     first 100 of each set and easy-proteomecluster of the first 100
+     proteins of 3 proteomes once more on the card, and those and the whole
+     easy-linsearch run (its m8 and every DB of its temporary directory)
+     equal byte for byte to a CPU side started beside phase 4;
 then one JSON line listing every kernel (ten entry points), with its
-launches on the clustering, iterative, translated, taxonomy and MSA
-paths beside those of the path that launches it;
+launches on the clustering, iterative, translated, taxonomy, MSA and
+workflow paths beside those of the path that launches it;
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA card or outside a checkout of the repository.
 """
@@ -1741,14 +1771,23 @@ def no_sync_in_dispatch():
         DevicePrefilter.match_batch_async = dispatch
 
 
+# phase 4's easy-search golden: the toy's first GOLDEN_ES_QUERIES queries
+# against the whole toy (a cut for time, from 500, when phase 15 came: a
+# query's lines do not depend on the other queries, as easy-search makes
+# its query and target DBs apart)
+GOLDEN_ES_QUERIES = 100
+
+
 def phase_golden_search():
     """The new commands on the card against the reference goldens: the
     k-mer prefilter of all 500 toy queries against themselves at the
     default sensitivity (`pref`), key by key (at -s 5.7, `it_pref_0`, it
     is phase_golden_profile's iterative search's first step),
-    and easy-search of the toy FASTA against itself (`golden_self.m8`, as
-    sorted lines: the output follows the result DB's data-file order)."""
+    and easy-search of the toy FASTA's first GOLDEN_ES_QUERIES against the
+    whole of it (their lines of `golden_self.m8`, as sorted lines: the
+    output follows the result DB's data-file order)."""
     from mmseqs2_tpu_torch.commands import prefilter_kmer
+    from mmseqs2_tpu_torch.commands.convertalis import parse_fasta_header
     qdb = GOLDEN / "qdb"
     for name, extra, gold in (("default", [], GOLDEN / "pref"),):
         out = WORK / f"golden_{gold.name}"
@@ -1768,16 +1807,21 @@ def phase_golden_search():
             raise AssertionError(f"golden parity (prefilter {name}) fails "
                                  f"for queries {bad[:10]}")
     fasta = GOLDEN / "QUERY.fasta"
+    queries = first_records(fasta, GOLDEN_ES_QUERIES,
+                            WORK / "golden_self_queries.fasta")
+    names = {parse_fasta_header(r.split("\n", 1)[0]) for r in
+             queries.read_text().split(">")[1:]}
     out = WORK / "golden_self.m8"
     t0 = time.perf_counter()
-    run_cli(["easy-search", fasta, fasta, out, WORK / "golden_tmp"])
+    run_cli(["easy-search", queries, fasta, out, WORK / "golden_tmp"])
     wall = time.perf_counter() - t0
     got = sorted(out.read_text().splitlines())
-    want = sorted((GOLDEN / "golden_self.m8").read_text().splitlines())
+    want = sorted(ln for ln in (GOLDEN / "golden_self.m8").read_text()
+                  .splitlines() if ln.split("\t", 1)[0] in names)
     n_bad = len(set(got) ^ set(want))
-    log(f"golden easy-search: {len(want)} lines, {n_bad} differ, "
-        f"{wall:.2f} s")
-    if got != want:
+    log(f"golden easy-search: the first {GOLDEN_ES_QUERIES} queries "
+        f"against all 500, {len(want)} lines, {n_bad} differ, {wall:.2f} s")
+    if got != want or not want:
         raise AssertionError("easy-search differs from golden_self.m8")
 
 
@@ -2178,6 +2222,116 @@ def extra_golden_check(side, host_side, nucl_side):
                              f"{gold}; launches {launches}")
 
 
+# -- phase 4: the search workflows' goldens ----------------------------------------
+
+# the goldens of the search workflows (tests/golden/{multihit,maprbh,
+# linsearch,proteome}), name -> (command and its arguments, the outputs
+# held byte for byte, data file and index, against their goldens); run
+# beside phase 4 in a subprocess with the card selected (rbh's and
+# multihitsearch's searches, linsearch's align and proteomecluster launch
+# sw_multi on the card, the searches diag_rescore too)
+MH, MR, LS, PR = (GOLDEN.parent / d for d in ("multihit", "maprbh",
+                                             "linsearch", "proteome"))
+WORKFLOW_GOLDENS = {
+    "bhps": (["besthitperset", MH / "qdb", MH / "tdb", MH / "res", "{out}"],
+             {"": MH / "bhps"}),
+    "bhps_nonsimple": (["besthitperset", MH / "qdb", MH / "tdb", MH / "res",
+                        "{out}", "--simple-best-hit", "0"],
+                       {"": MH / "bhps_nonsimple"}),
+    "merged": (["mergeresultsbyset", MH / "qdb_set_to_member", MH / "bhps",
+                "{out}"], {"": MH / "merged"}),
+    **{f"comb{m}": (["combinepvalperset", MH / "qdb", MH / "tdb",
+                     MH / "merged", "{out}", "--aggregation-mode", m],
+                    {"": MH / f"comb{m}"}) for m in range(4)},
+    "multihitdb": (["multihitdb", MH / "wf" / "contigs.fasta", "{out}",
+                    "{out}_tmp"],
+                   {s: MH / "wf" / f"refdb{s}" for s in (
+                       "", "_member_to_set", "_set_to_member", "_set_size",
+                       "_nucl_contig_to_set")}),
+    "multihitsearch": (["multihitsearch", "{work}/wfg_multihitdb",
+                        "{work}/wfg_multihitdb", "{out}", "{out}_tmp"],
+                       {"": MH / "wf" / "refout"}),
+    "map": (["map", MR / "adb", MR / "bdb", "{out}", "{out}_tmp"],
+            {"": MR / "refmap"}),
+    "rbh": (["rbh", MR / "adb", MR / "bdb", "{out}", "{out}_tmp"],
+            {"": MR / "refrbh2"}),
+    "linsearch": (["linsearch", LS / "adb", "{work}/wfg_bdb", "{out}",
+                   "{out}_tmp"], {"": LS / "reflin"}),
+    "proteomecluster": (["proteomecluster", PR / "pdb", PR / "clu", "{out}",
+                         "{out}_count", "{out}_prot", "--threads", "1"],
+                        {"": PR / "refaln", "_count": PR / "refcount"}),
+    "parseproteomealignments": (["parseproteomealignments", PR / "pdb",
+                                 PR / "pdb", PR / "alnclu", "{out}"],
+                                {"": PR / "refpa"}),
+}
+
+
+def workflow_golden_runs():
+    """The side of WORKFLOW_GOLDENS (a subprocess with the card selected):
+    each command into WORK/wfg_<name> (linsearch's target DB a copy, so
+    that its .linidx is written beside it), then the launches of sw_multi and
+    diag_rescore and proteomecluster's statistics into
+    WORK/wfg_launches.json."""
+    from mmseqs2_tpu_torch.commands import proteome
+    from mmseqs2_tpu_torch.ops import rescore, sw
+    for suf in ("", ".index", ".dbtype", "_h", "_h.index", "_h.dbtype"):
+        shutil.copy(LS / f"bdb{suf}", WORK / f"wfg_bdb{suf}")
+    launches = {}
+    for name, (args, _) in WORKFLOW_GOLDENS.items():
+        out = WORK / f"wfg_{name}"
+        argv = [str(a).format(out=out, work=WORK) for a in args]
+        before = (sw.sw_multi.launches, rescore.diag_rescore.launches)
+        proteome.reset_stats()
+        run_cli(argv)
+        launches[name] = dict(
+            sw_multi=sw.sw_multi.launches - before[0],
+            diag_rescore=rescore.diag_rescore.launches - before[1])
+        if name == "proteomecluster":
+            launches[name]["proteomecluster"] = dict(proteome.STATS)
+    (WORK / "wfg_launches.json").write_text(json.dumps(launches))
+
+
+WORKFLOW_GOLDEN_SIDE = r"""
+from chip_smoke import workflow_golden_runs
+workflow_golden_runs()
+"""
+
+
+def workflow_golden_check(side):
+    """The search workflows' goldens run on the card beside phase 4
+    (WORKFLOW_GOLDEN_SIDE): every output byte for byte against its golden
+    (data file and index; the .linidx that linsearch wrote also its dbtype),
+    the searches' kernels launched on the card, proteomecluster's one
+    align_batch for its two rounds. Returns the launches."""
+    bad = []
+    for name, (_, golds) in WORKFLOW_GOLDENS.items():
+        for suf, gold in golds.items():
+            ours = f"{WORK / f'wfg_{name}'}{suf}"
+            if any(pathlib.Path(f"{ours}{s}").read_bytes()
+                   != pathlib.Path(f"{gold}{s}").read_bytes()
+                   for s in ("", ".index")):
+                bad.append(f"{name}{suf}")
+    if any(pathlib.Path(f"{WORK / 'wfg_bdb.linidx'}{s}").read_bytes()
+           != pathlib.Path(f"{LS / 'bdb.linidx'}{s}").read_bytes()
+           for s in ("", ".index", ".dbtype")):
+        bad.append("bdb.linidx")
+    launches = json.loads((WORK / "wfg_launches.json").read_text())
+    n_out = sum(len(g) for _, g in WORKFLOW_GOLDENS.values()) + 1
+    log(f"golden search workflows (multihit, maprbh, linsearch, proteome; "
+        f"a subprocess with the card selected, {side['cpu_s']:.2f} s): "
+        f"{n_out} outputs, {len(bad)} differ; launches "
+        f"{json.dumps(launches)}")
+    pc = launches["proteomecluster"]["proteomecluster"]
+    if bad or pc["batches"] != 1 or pc["rounds"] != 2 or min(
+            launches[n]["sw_multi"] for n in ("rbh", "multihitsearch",
+                                              "linsearch", "proteomecluster")
+            ) <= 0 or min(launches[n]["diag_rescore"]
+                          for n in ("rbh", "multihitsearch")) <= 0:
+        raise AssertionError(f"the search workflows' goldens: {bad} differ; "
+                             f"launches {launches}")
+    return launches
+
+
 def phase_golden_cluster():
     """Clustering on the card against the reference goldens: `clust` in
     its three modes (clu0-clu2), `rescorediagonal` in three (resc0-resc2),
@@ -2248,18 +2402,18 @@ def phase_golden_cluster():
 
 
 def phase_golden_profile(n_queries=25, n_targets=250):
-    """golden_profile_runs, and beside them, with the CPU requested, `search
-    --num-iterations 2` of the toy's first n_queries against its first
-    n_targets (the last iteration's own branch: its align at -e, its merge
-    writing the result); then the same search on the card, whose data and
-    index must equal the CPU's byte for byte."""
+    """With the CPU requested, `search --num-iterations 2` of the toy's
+    first n_queries against its first n_targets (the last iteration's own
+    branch: its align at -e, its merge writing the result), and beside it
+    the same search on the card, whose data and index must equal the CPU's
+    byte for byte (the goldens of the profile search run in
+    PROFILE_GOLDEN_SIDE)."""
     q = sub_db(GOLDEN / "qdb", n_queries, WORK / "it2_q")
     t = sub_db(GOLDEN / "qdb", n_targets, WORK / "it2_t")
     side = {}
     with cli_cpu_side("search --num-iterations 2", [[
             "search", q, t, WORK / "it2_cpu", WORK / "it2_cpu_tmp",
             "--num-iterations", 2]], side):
-        golden_profile_runs()
         wrappers = kernel_wrappers()
         before = {n: w.launches for n, w in wrappers.items()}
         t0 = time.perf_counter()
@@ -2280,6 +2434,34 @@ def phase_golden_profile(n_queries=25, n_targets=250):
     if differ or n_hits == 0 or not launched.get("diag_rescore_profile"):
         raise AssertionError(f"search --num-iterations 2 on the card: "
                              f"{differ or 'no hits or no profile rescore'}")
+
+
+# phase 4's profile goldens (golden_profile_runs) in a subprocess with the
+# card selected, at the main thread's priority, beside the main thread's
+# goldens (a cut for time, when phase 15 came: they took about a third of
+# the main thread's); its lines go to WORK/profile_goldens.log and to its
+# stderr, which cpu_side shows if it raised
+PROFILE_GOLDEN_SIDE = r"""
+import sys
+import chip_smoke
+
+def log(msg):
+    print(msg, file=sys.stderr, flush=True)
+    with open(chip_smoke.WORK / "profile_goldens.log", "a") as f:
+        f.write(msg + "\n")
+
+chip_smoke.log = log
+chip_smoke.golden_profile_runs()
+"""
+
+
+def profile_golden_check(side):
+    """The lines of PROFILE_GOLDEN_SIDE, which raised in its process if a
+    golden differed or a kernel was not launched."""
+    for line in (WORK / "profile_goldens.log").read_text().splitlines():
+        log(line)
+    log(f"the profile search's goldens: a subprocess with the card selected "
+        f"beside phase 4's main thread, {side['cpu_s']:.2f} s")
 
 
 def golden_profile_runs():
@@ -2397,17 +2579,25 @@ def write_fasta(path, names, seqs):
             f.write(f">{name}\n{aa[s].tobytes().decode()}\n")
 
 
-def family_targets(rng, n_targets, n_fam, prefix="T"):
+def first_records(src, n, dst):
+    """The first n records of a FASTA file, written to dst."""
+    recs = pathlib.Path(src).read_text().split(">")[1:]
+    pathlib.Path(dst).write_text("".join(">" + r for r in recs[:n]))
+    return dst
+
+
+def family_targets(rng, n_targets, n_fam, prefix="T", mutated=(0.15, 0.45)):
     """SwissProt-like sequences drawn from n_fam planted families: each a
-    copy of its family's ancestor with 15-45% of its letters mutated, 30%
-    of them cut at both ends. Returns (sequences, names, families)."""
+    copy of its family's ancestor with 15-45% (`mutated`) of its letters
+    mutated, 30% of them cut at both ends. Returns (sequences, names,
+    families)."""
     ancestors = [rng.choice(20, size=int(L), p=PBACK)
                  for L in lengths(rng, n_fam)]
     tseqs, tnames, tfam = [], [], []
     for i in range(n_targets):
         f = int(rng.integers(n_fam))
         s = ancestors[f].copy()
-        mut = rng.random(len(s)) < rng.uniform(0.15, 0.45)
+        mut = rng.random(len(s)) < rng.uniform(*mutated)
         s[mut] = rng.choice(20, size=int(mut.sum()), p=PBACK)
         if rng.random() < 0.3:
             lo = int(rng.integers(0, max(len(s) // 4, 1)))
@@ -3540,7 +3730,7 @@ def near_duplicates(seqs, n, rng):
 
 
 @contextlib.contextmanager
-def cluster_cpu_check(n_check=1_000, n_dup=100):
+def cluster_cpu_check(n_check=500, n_dup=50):
     """Phase 8's check set and its CPU side. The set, from its own
     generator: n_check sequences of phase 5's recipe (as many families as
     the 50,000 targets have, so that it is composed like their first
@@ -3565,18 +3755,20 @@ def cluster_cpu_check(n_check=1_000, n_dup=100):
 
 
 @contextlib.contextmanager
-def cpu_side(label, script, args, out, device="cpu"):
+def cpu_side(label, script, args, out, device="cpu", nice=19):
     """Runs `script` (python -c, argv `args`) with the CPU requested in a
     subprocess while the block runs, at the lowest priority (nice 19), so
     that the card's runs beside it keep the host's cores; leaving the block
     waits for it (sets out['cpu_s'], the seconds the script itself took)
     and raises with its stderr if it failed. The subprocess is killed if
     the block raises. device="cuda" selects the card instead (phase 4's
-    host-only MSA goldens, which launch nothing)."""
+    host-only MSA goldens, which launch nothing); nice=0 keeps the main
+    thread's priority (phase 4's profile goldens, which would otherwise end
+    after the main thread's)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="4",
                MMSEQS2_TPU_TORCH_DEVICE=device)
     stem = WORK / f"cpu_side_{label.replace(' ', '_')}"
-    timed = (f"import os as _os, time as _t\n_os.nice(19)\n"
+    timed = (f"import os as _os, time as _t\n_os.nice({nice})\n"
              f"_t0 = _t.perf_counter()\n{script}\n"
              f"open({str(stem) + '.s'!r}, 'w').write("
              f"repr(_t.perf_counter() - _t0))\n")
@@ -3621,9 +3813,9 @@ def cli_cpu_side(label, steps, out, device="cpu"):
 
 
 @contextlib.contextmanager
-def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=2,
-                         n_exhaustive=32, n_exhaustive_targets=500,
-                         n_gapped=8, n_msa=16, n_targets=N_TARGETS,
+def real_size_cpu_checks(rng, n_easy=16, n_iterative=8, iterations=2,
+                         n_exhaustive=16, n_exhaustive_targets=500,
+                         n_gapped=8, n_msa=8, n_targets=N_TARGETS,
                          n_queries=1_000):
     """The CPU sides of phases 6, 7, 9, 11, 12 and 13: phase 5's FASTA files
     made now, from a copy of the generator as phase 5 will find it (phase 5
@@ -3644,6 +3836,8 @@ def real_size_cpu_checks(rng, n_easy=32, n_iterative=16, iterations=2,
     targets and `gappedprefilter` of the first n_gapped against them; and
     phase 13's (msa_cpu_run): `result2msa`, `msa2profile` and
     `sequence2profile --context-lib` of the first n_msa queries.
+    n_easy, n_iterative, n_exhaustive and n_msa were halved when phase 15
+    came (a cut for time: these sides must end within phase 4).
     Leaving the block waits for them. Yields a dict with their results'
     paths and, once done, their seconds."""
     import copy
@@ -4223,10 +4417,16 @@ def msa_test_helpers():
     return test_torch_msa
 
 
+# msa_host_goldens' msa2profile and expand2profile: the first MSAs and
+# queries (the other goldens take the toy's whole input)
+MSA_GOLDEN_SUBSET = 100
+
+
 def msa_host_goldens():
     """The MSA and profile tools against the reference goldens that the
-    JAX package's tests use, every one on the toy's whole input (phase 4's
-    host-only side: these commands launch nothing). Writes each golden's
+    JAX package's tests use, on the toy's whole input but msa2profile's
+    and expand2profile's (their first MSA_GOLDEN_SUBSET MSAs and queries;
+    phase 4's host-only side: these commands launch nothing). Writes each golden's
     verdict and seconds to WORK/msa_host_goldens.json and raises if any
     differs."""
     from mmseqs2_tpu_torch.db import dbtype as dbt
@@ -4249,13 +4449,27 @@ def msa_host_goldens():
          ["result2msa", GOLDEN / "qdb", GOLDEN / "qdb", GOLDEN / "it_aln_0",
           out / "a3m", "--msa-format-mode", 5],
          lambda: db(out / "a3m") == db(util / "refa3m"))]
+    def sub_equal(ours, gold, n):
+        got, want = entries(ours), entries(gold)
+        return len(got) == n and got == {k: want[k] for k in got}
+
+    # msa2profile and expand2profile of the first MSA_GOLDEN_SUBSET MSAs
+    # and queries (a cut for time, from all 500, when phase 15 came: a
+    # profile depends on its own MSA or query alone; tests/test_torch_msa.py
+    # -m slow runs all 500), each entry against the golden's
+    n = MSA_GOLDEN_SUBSET
+    msa_sub = h.first_entries(util / "refmsa", n, out / "refmsa_sub",
+                              dbt.DBTYPE_MSA_DB)
+    keys = sorted(entries(GOLDEN / "aln"))[:n]
+    aln_sub = h.sub_results(GOLDEN / "aln", keys, out / "aln_sub")
     for mode, gold in ((0, "refm2p"), (1, "refm2p1")):
-        cases.append((f"msa2profile --match-mode {mode} ({gold})",
-                      ["msa2profile", util / "refmsa", out / gold,
-                       "--match-mode", mode],
-                      lambda gold=gold: db(out / gold, ("", ".index",
-                                                        ".dbtype"))
-                      == db(util / gold, ("", ".index", ".dbtype"))))
+        cases.append((f"msa2profile --match-mode {mode} ({gold}, the first "
+                      f"{n} MSAs)",
+                      ["msa2profile", msa_sub, out / gold, "--match-mode",
+                       mode],
+                      lambda gold=gold: sub_equal(out / gold, util / gold, n)
+                      and db(out / gold, (".dbtype",))
+                      == db(util / gold, (".dbtype",))))
     cases += [
         ("profile2pssm (refpssm.tsv)",
          ["profile2pssm", GOLDEN / "it_profile_0", out / "pssm.tsv"],
@@ -4277,10 +4491,10 @@ def msa_host_goldens():
                       lambda gold=gold: entries(out / gold.name)
                       == entries(gold)))
     cases += [
-        ("expand2profile (exp_prof)",
-         ["expand2profile", GOLDEN / "qdb", GOLDEN / "qdb", GOLDEN / "aln",
+        (f"expand2profile (exp_prof, the first {n} queries)",
+         ["expand2profile", GOLDEN / "qdb", GOLDEN / "qdb", aln_sub,
           GOLDEN / "aln", out / "exp_prof"],
-         lambda: entries(out / "exp_prof") == entries(GOLDEN / "exp_prof")),
+         lambda: sub_equal(out / "exp_prof", GOLDEN / "exp_prof", n)),
         ("filtera3m (bigfilt.a3m)",
          ["filtera3m", g / "msares" / "big.a3m", out / "filt.a3m",
           "--max-seq-id", 0.9, "--diff", 5],
@@ -4842,6 +5056,222 @@ def phase_fwbw(side, n_queries=FWBW_QUERIES):
                              f"{json.dumps(bad[:5])}")
     return res
 
+# -- phase 15: the search workflows ------------------------------------------------
+
+# phase 15's sets, from their own generator with phase 5's recipe
+# (family_targets: log-normal lengths, families of about 8): easy-rbh of two
+# proteome-like sets of WF_RBH sequences drawn from one pool of families
+# (about 4 members of a family in each set); easy-proteomecluster of
+# WF_PROTEOMES proteomes of WF_PROTEOME_SEQS proteins from one pool of
+# families at 1-5% mutation (strains of one species), protein i in
+# proteome i % WF_PROTEOMES, so that a family's members fall in the
+# proteomes at random; easy-linsearch of the first WF_LIN_QUERIES of phase
+# 5's queries against its first WF_LIN_TARGETS targets (a cut for time,
+# from 1,000 x 50,000)
+WF_SEED = SEED + 15
+WF_RBH = 2_000
+WF_PROTEOMES, WF_PROTEOME_SEQS = 8, 500
+WF_LIN_QUERIES, WF_LIN_TARGETS = 250, 10_000
+# the sub-cells that the card runs once more and that the CPU side (beside
+# phase 4) runs with the CPU requested, held byte for byte: easy-rbh of the
+# first WF_RBH_CHECK sequences of each set, easy-proteomecluster of the
+# first WF_PROTEOME_CHECK[1] proteins of the first WF_PROTEOME_CHECK[0]
+# proteomes; easy-linsearch is held whole (its host work, the index, is the
+# same on both sides): its m8 and every DB of its run equal
+WF_RBH_CHECK = 100
+WF_PROTEOME_CHECK = (3, 100)
+
+
+def workflow_sets():
+    """Phase 15's FASTA files, made beside phase 4 (after
+    real_size_cpu_checks has written phase 5's files): a dict with the two
+    easy-rbh sets and their families by name, the proteomes, the check
+    sub-cells' files, and easy-linsearch's queries and targets."""
+    rng = np.random.default_rng(WF_SEED)
+    w = WORK
+    seqs, names, fam = family_targets(rng, 2 * WF_RBH, 2 * WF_RBH // 8,
+                                      prefix="R")
+    sets = dict(rbh=(w / "wf_rbh_a.fasta", w / "wf_rbh_b.fasta"),
+                rbh_family=dict(zip(names, fam)))
+    write_fasta(sets["rbh"][0], names[:WF_RBH], seqs[:WF_RBH])
+    write_fasta(sets["rbh"][1], names[WF_RBH:], seqs[WF_RBH:])
+    sets["rbh_check"] = [
+        first_records(f, WF_RBH_CHECK, w / f"wf_rbh_{s}_check.fasta")
+        for f, s in zip(sets["rbh"], "ab")]
+    n = WF_PROTEOMES * WF_PROTEOME_SEQS
+    seqs, names, _ = family_targets(rng, n, n // 8, prefix="P",
+                                    mutated=(0.01, 0.05))
+    sets["proteomes"] = []
+    for p in range(WF_PROTEOMES):
+        path = w / f"wf_proteome{p}.fasta"
+        write_fasta(path, names[p::WF_PROTEOMES], seqs[p::WF_PROTEOMES])
+        sets["proteomes"].append(path)
+    n_p, n_s = WF_PROTEOME_CHECK
+    sets["proteome_check"] = [
+        first_records(f, n_s, w / f"wf_proteome{p}_check.fasta")
+        for p, f in enumerate(sets["proteomes"][:n_p])]
+    sets["lin_queries"] = first_records(w / "queries.fasta", WF_LIN_QUERIES,
+                                        w / "wf_lin_queries.fasta")
+    sets["lin_targets"] = first_records(w / "targets.fasta", WF_LIN_TARGETS,
+                                        w / "wf_lin_targets.fasta")
+    return sets
+
+
+def workflow_cpu_steps(sets):
+    """Phase 15's CPU side (cli_cpu_side, beside phase 4): the check
+    sub-cells and the whole easy-linsearch run, its temporary DBs kept."""
+    w = WORK
+    return [
+        ["easy-rbh", *sets["rbh_check"], w / "wf_rbh_cpu.m8",
+         w / "wf_rbh_cpu_tmp"],
+        ["easy-proteomecluster", *sets["proteome_check"], w / "wf_prot_cpu",
+         w / "wf_prot_cpu_tmp"],
+        ["easy-linsearch", sets["lin_queries"], sets["lin_targets"],
+         w / "wf_lin_cpu.m8", w / "wf_lin_cpu_tmp", "--remove-tmp-files", 0]]
+
+
+def workflow_run(label, args):
+    """One workflow on the card under torch.profiler (the card's activity
+    only; its wall includes what tracing costs), every kernel's count and
+    the aligner's and proteomecluster's statistics set to 0 just before and
+    read just after: wall, each step's seconds, launches and read-backs
+    (step_record; a step inside a step counts in both), the launches by
+    kernel, sw_multi's by form, B1's device ms (the aligner's CUDA events),
+    B4's launches and device ms from the trace, the busy share."""
+    from mmseqs2_tpu_torch.align import aligner
+    from mmseqs2_tpu_torch.commands import prefilter_kmer, proteome
+    from mmseqs2_tpu_torch.ops import sw
+    aligner.reset_stats()
+    prefilter_kmer.reset_stats()
+    proteome.reset_stats()
+    wrappers = kernel_wrappers()
+    for wr in wrappers.values():
+        wr.launches = 0
+    sw.sw_multi.form_launches = dict.fromkeys(sw.sw_multi.form_launches, 0)
+    with step_record() as steps:
+        prof, wall = traced(lambda: run_cli(args))
+    trace = trace_summary(export_trace(prof, label), label, wall,
+                          focus="rescore_kernel")
+    st = aligner.STATS
+    return dict(
+        wall_s=wall,
+        steps=[{k: r[k] for k in ("command", "out", "s", "sw_multi",
+                                  "diag_rescore", "readbacks")}
+               for r in steps],
+        launches={n: wr.launches for n, wr in wrappers.items()
+                  if wr.launches},
+        sw_multi_by_form=dict(sw.sw_multi.form_launches),
+        b1_device_ms=st["kernel_ms"], b4_trace_launches=trace["focus"][
+            "count"], b4_device_ms=1e3 * trace["focus"]["s"],
+        busy_share=trace["busy_share"], aligned_pairs=st["pairs"],
+        readbacks=st["readbacks"], backtrace_s=st["backtrace_s"])
+
+
+def same_files(pairs, what):
+    """Raise unless each (a, b) pair of files holds the same bytes and
+    the first is not empty."""
+    for a, b in pairs:
+        got, want = pathlib.Path(a).read_bytes(), pathlib.Path(b).read_bytes()
+        if got != want or not got:
+            raise AssertionError(f"{what}: {pathlib.Path(a).name} differs "
+                                 f"from the CPU's ({len(got)} and "
+                                 f"{len(want)} bytes)")
+
+
+def workflow_launches(wf, name):
+    """A kernel's launches in each of phase 15's workflow runs."""
+    return {cell: wf[cell]["launches"].get(name, 0)
+            for cell in ("easy_rbh", "easy_proteomecluster",
+                         "easy_linsearch")}
+
+
+def phase_workflows(side, sets):
+    """The search workflows at a size their users run (workflow_sets):
+    easy-rbh of two sets of WF_RBH, easy-proteomecluster of WF_PROTEOMES
+    proteomes of WF_PROTEOME_SEQS through the default linclust module,
+    easy-linsearch of WF_LIN_QUERIES x WF_LIN_TARGETS (workflow_run each:
+    the FASTA files in, so createdb is part of each wall);
+    proteome.STATS (never an align_batch a cluster: at most one a round
+    here, BLOCK being past a round's clusters); the share of the RBH pairs
+    inside a planted family (printed); then the check sub-cells once more
+    on the card and the linsearch run's DBs against the CPU side's."""
+    from mmseqs2_tpu_torch.commands import proteome
+    w = WORK
+    res = dict(card=card_line())
+    out = w / "wf_rbh.m8"
+    r = res["easy_rbh"] = workflow_run(
+        "easy-rbh", ["easy-rbh", *sets["rbh"], out, w / "wf_rbh_tmp"])
+    lines = [ln.split("\t") for ln in out.read_text().splitlines()]
+    fam = sets["rbh_family"]
+    r.update(seqs=2 * WF_RBH, rbh_pairs=len(lines),
+             same_family=sum(fam[a] == fam[b] for a, b, *_ in lines)
+             / max(len(lines), 1))
+    require_launches(r["launches"], ("sw_multi", "diag_rescore"), "easy-rbh")
+    log("workflows easy-rbh " + json.dumps(r))
+
+    prefix = w / "wf_prot"
+    r = res["easy_proteomecluster"] = workflow_run(
+        "easy-proteomecluster", ["easy-proteomecluster", *sets["proteomes"],
+                                 prefix, w / "wf_prot_tmp"])
+    st = r["proteomecluster"] = dict(proteome.STATS)
+    r.update(proteomes=WF_PROTEOMES, seqs=WF_PROTEOMES * WF_PROTEOME_SEQS,
+             clusters=len({ln.split("\t")[0] for ln in pathlib.Path(
+                 f"{prefix}_protein_cluster.tsv").read_text().splitlines()}),
+             proteome_clusters=pathlib.Path(
+                 f"{prefix}_proteome_cluster.tsv").read_text().count("\n"))
+    require_launches(r["launches"], ("sw_multi",), "easy-proteomecluster")
+    log("workflows easy-proteomecluster " + json.dumps(r))
+    if not 0 < st["batches"] <= st["rounds"] or st["pairs"] <= 0:
+        raise AssertionError(f"proteomecluster made {st['batches']} "
+                             f"align_batch calls in {st['rounds']} rounds")
+
+    r = res["easy_linsearch"] = workflow_run(
+        "easy-linsearch", ["easy-linsearch", sets["lin_queries"],
+                           sets["lin_targets"], w / "wf_lin.m8",
+                           w / "wf_lin_tmp", "--remove-tmp-files", 0])
+    r.update(queries=WF_LIN_QUERIES, targets=WF_LIN_TARGETS,
+             hits=pathlib.Path(w / "wf_lin.m8").read_text().count("\n"))
+    require_launches(r["launches"], ("sw_multi",), "easy-linsearch")
+    log("workflows easy-linsearch " + json.dumps(r))
+
+    # the check sub-cells on the card, against the CPU side
+    t0 = time.perf_counter()
+    run_cli(["easy-rbh", *sets["rbh_check"], w / "wf_rbh_check.m8",
+             w / "wf_rbh_check_tmp"])
+    run_cli(["easy-proteomecluster", *sets["proteome_check"],
+             w / "wf_prot_check", w / "wf_prot_check_tmp"])
+    same_files([(w / "wf_rbh_check.m8", w / "wf_rbh_cpu.m8")],
+               f"easy-rbh of {WF_RBH_CHECK} x {WF_RBH_CHECK}")
+    same_files([(f"{w / 'wf_prot_check'}{s}", f"{w / 'wf_prot_cpu'}{s}")
+                for s in ("_protein_cluster.tsv", "_cluster_count.tsv",
+                          "_proteome_cluster.tsv")],
+               "easy-proteomecluster of %d x %d" % WF_PROTEOME_CHECK)
+    lin_lines = {}
+    for name in ("pref", "reverse_ungapaln", "reverse_aln", "result"):
+        ours = entries(next((w / "wf_lin_tmp").rglob(f"{name}.dbtype"))
+                       .with_suffix(""))
+        if ours != entries(next((w / "wf_lin_cpu_tmp").rglob(
+                f"{name}.dbtype")).with_suffix("")):
+            raise AssertionError(f"easy-linsearch's {name} differs on the "
+                                 f"card and the CPU")
+        lin_lines[name] = sum(v.count(b"\n") for v in ours.values())
+    if (pathlib.Path(w / "wf_lin.m8").read_bytes()
+            != pathlib.Path(w / "wf_lin_cpu.m8").read_bytes()
+            or not lin_lines["pref"]):
+        raise AssertionError("easy-linsearch's m8 differs on the card and "
+                             "the CPU, or it found no candidate")
+    res["check"] = dict(
+        card_s=time.perf_counter() - t0, cpu_s=side["cpu_s"],
+        rbh_lines=pathlib.Path(w / "wf_rbh_cpu.m8").read_text().count("\n"),
+        linsearch_lines=lin_lines)
+    log("workflows: the sub-cells (easy-rbh of %d x %d, easy-proteomecluster"
+        " of %d proteomes x %d) and easy-linsearch's m8, pref, "
+        "reverse_ungapaln, reverse_aln and result equal on the card and the "
+        "CPU: %s" % (
+            WF_RBH_CHECK, WF_RBH_CHECK, *WF_PROTEOME_CHECK,
+            json.dumps(res["check"])))
+    return res
+
 
 def main():
     try:
@@ -4908,8 +5338,23 @@ def main():
         fwrows = phase_fwbw_kernel()
         phase_done(3)
 
+        # the profile search's goldens on the card beside the main thread's
+        # (after phase 3, whose kernel times are the card's own)
+        prof_side = {}
+        sides.enter_context(cpu_side(
+            "profile goldens on the card", PROFILE_GOLDEN_SIDE, [], prof_side,
+            device="cuda", nice=0))
         prof = server_profile(rng)
         rcheck = sides.enter_context(real_size_cpu_checks(rng))
+        # phase 15's sets (after phase 5's files) and its CPU side, and the
+        # search workflows' goldens on the card in a subprocess
+        wf_sets = workflow_sets()
+        wf_side, wfg_side = {}, {}
+        sides.enter_context(cli_cpu_side(
+            "workflows", workflow_cpu_steps(wf_sets), wf_side))
+        sides.enter_context(cpu_side(
+            "workflow goldens on the card", WORKFLOW_GOLDEN_SIDE, [],
+            wfg_side, device="cuda"))
         # this slice's runs on the card beside phase 4 (after phase 3,
         # whose kernel times are the card's own): the alignx and pairaln
         # goldens, the nucleotide exhaustive prefilter and its gpuserver
@@ -4930,6 +5375,8 @@ def main():
     msa_golden_check(msa_side, msa_golden)
     extra_golden_check(extra_side, host_side, nucl_side)
     pm1_check(pm1_side)
+    profile_golden_check(prof_side)
+    wf_golden = workflow_golden_check(wfg_side)
     phase_done(4)
 
     # 5. the align stage alone at real size (its traced rerun went when
@@ -4946,8 +5393,9 @@ def main():
     phase_done(7)
 
     # 8. clustering at real size (easy-linclust of 6,000: a cut for time,
-    # from 10,000, when phase 14 came)
-    clu = phase_clustering(check, n_linclust=6_000)
+    # from 10,000, when phase 14 came; easy-cluster of 1,000, from 2,000,
+    # when phase 15 came)
+    clu = phase_clustering(check, n_linclust=6_000, n_cluster=1_000)
     phase_done(8)
 
     # 9. the iterative profile search at real size
@@ -4982,6 +5430,11 @@ def main():
     # queries (15,000 pairs)
     fw = phase_fwbw(fw_side)
     phase_done(14)
+
+    # 15. the search workflows at a size their users run: easy-rbh,
+    # easy-proteomecluster, easy-linsearch (250 x 10,000: a cut for time)
+    wf = phase_workflows(wf_side, wf_sets)
+    phase_done(15)
 
     # kernels line; launches are those of the run of the path that
     # launches the kernel: easy-search, ungappedprefilter, the server's
@@ -5028,7 +5481,10 @@ def main():
         launches_taxonomy_lcaalign=tax["lcaalign"]["sw_multi"],
         launches_msa=msa["result2msa"]["sw_multi"],
         launches_msa_golden=msa_golden["result2msa"]["launches"][
-            "sw_multi"]),
+            "sw_multi"],
+        launches_workflows=workflow_launches(wf, "sw_multi"),
+        launches_workflows_golden={n: v["sw_multi"]
+                                   for n, v in wf_golden.items()}),
         dict(
         name="diag_rescore", route="cuda",
         source="mmseqs2_tpu_torch/csrc/rescore.cu",
@@ -5049,7 +5505,10 @@ def main():
         launches_iterative=it["launches"]["diag_rescore"],
         launches_translated=tr["launches"]["diag_rescore"],
         launches_translated_golden=nucl_launches["diag_rescore"],
-        launches_taxonomy=tax["launches"]["diag_rescore"])]
+        launches_taxonomy=tax["launches"]["diag_rescore"],
+        launches_workflows=workflow_launches(wf, "diag_rescore"),
+        launches_workflows_golden={n: v["diag_rescore"]
+                                   for n, v in wf_golden.items()})]
     prep = next(r for c, r in prows if c["n_cand"] == 1 << 17
                 and "slots" not in c and not c["counted"]
                 and "order" not in c)

@@ -14,9 +14,9 @@ src/workflow/Linclust.cpp / Cluster.cpp parameter wiring:
 Port of mmseqs2_tpu/commands/cluster_wf.py for protein and nucleotide
 sequence DBs: linclust v1 and v2 (with --clust-hash), cluster v1
 (cascaded, with --cluster-reassign), v2 and --single-step-clustering, and
-the clusterupdate workflow. Not yet ported (see ROADMAP.md), each raising
-before any step runs: --switch-consensus-rep (needs pickconsensusrepfast)
-and profile DBs.
+the clusterupdate workflow, with --switch-consensus-rep
+(pickconsensusrepfast). Not yet ported (see ROADMAP.md), raising before any
+step runs: profile DBs.
 """
 
 import os
@@ -34,12 +34,28 @@ def _not_ported(what):
 
 def _refuse_unported(par, seq_db):
     """Raise for the branches the port does not run yet, before any step."""
-    if par.switch_consensus_rep:
-        _not_ported("--switch-consensus-rep (pickconsensusrepfast)")
     with DBReader(seq_db) as r:
         if r.base_type not in (dbt.DBTYPE_AMINO_ACIDS,
                                dbt.DBTYPE_NUCLEOTIDES):
             _not_ported("clustering of a profile database")
+
+
+def _switch_consensus_rep(par, wf, seq_db, out_db, keep_aln):
+    """--switch-consensus-rep: pickconsensusrepfast over the clustering's
+    rep->member alignments, which replaces out_db; the alignments go unless
+    --include-align-files was set."""
+    if not par.switch_consensus_rep:
+        return
+    switched = wf.path("clu_switched")
+    wf.step(switched, "pickconsensusrepfast",
+            [seq_db, out_db, switched, wf.path("switch_tmp")], par)
+    for suf in ("", ".index", ".dbtype"):
+        if os.path.exists(switched + suf):
+            os.replace(switched + suf, out_db + suf)
+    if not keep_aln:
+        for suf in ("", ".index", ".dbtype"):
+            if os.path.exists(out_db + "_aln" + suf):
+                os.remove(out_db + "_aln" + suf)
 
 
 def _write_rep_order(clu_path, out_file):
@@ -138,12 +154,18 @@ def linclust(par, command):
 def _linclust_v2(par, wf, seq_db, out_db):
     """linclust2 module: kmermatcher (v2 center-swapping chain) ->
     align2clust -> representative refinement pass -> mergeclusters,
-    with optional clusthash pre-clustering.
+    with optional clusthash pre-clustering and consensus-rep switching.
 
     Reference: data/workflow/linclust.sh:21-140 +
     src/workflow/Linclust.cpp:168-201 (first kmermatcher pass runs with
     spaced k-mers and masking off, the refinement pass with spaced k-mers
     on and --kmer-per-seq-scale 0.1)."""
+    # --switch-consensus-rep reuses the rep->member alignments, so force
+    # their creation (Linclust.cpp:54-64)
+    keep_aln = par.was_set("include_align_files") and par.include_align_files
+    if par.switch_consensus_rep:
+        par.set("include_align_files", True)
+        par.set("add_backtrace", True)
     source = seq_db
     cur = seq_db
     clusthash_clu = None
@@ -209,6 +231,7 @@ def _linclust_v2(par, wf, seq_db, out_db):
                 if os.path.exists(clu_rep + "_aln" + suf):
                     os.replace(clu_rep + "_aln" + suf,
                                out_db + "_aln" + suf)
+    _switch_consensus_rep(par, wf, seq_db, out_db, keep_aln)
     if par.remove_tmp_files:
         wf.cleanup(True)
     return 0
@@ -242,6 +265,12 @@ def cluster(par, command):
     seq_db, out_db, tmp = par.filenames[:3]
     _refuse_unported(par, seq_db)
     wf = Workflow(tmp, par.force_reuse)
+    if par.switch_consensus_rep and par.cluster_version != 2:
+        # reference: only supported with align2clust-based cluster-version 2
+        # (Cluster.cpp:143-147)
+        log.warning("--switch-consensus-rep is only supported with "
+                    "--cluster-version 2; ignoring. Run pickconsensusrep "
+                    "on the result to switch representatives.")
     set_cluster_defaults(par)
     steps = par.cluster_steps if par.was_set("cluster_steps") else (
         1 if par.sensitivity <= 2.0 else 3)
@@ -435,6 +464,11 @@ def _cluster_v2(par, wf, seq_db, out_db):
     switching.  Reference data/workflow/cascaded_clustering.sh:50-107 +
     src/workflow/Cluster.cpp:269-288 (Cluster.cpp:270-276 derives the
     linclust-equivalent sensitivity from --min-seq-id)."""
+    keep_aln = par.was_set("include_align_files") and par.include_align_files
+    if par.switch_consensus_rep:
+        # force alignment files for the rep switch (Cluster.cpp:61-64 analog)
+        par.set("include_align_files", True)
+        par.set("add_backtrace", True)
     # v2 derives its own sensitivity from --min-seq-id, overriding -s
     # (Cluster.cpp:269-276 has no wasSet guard)
     if par.min_seq_id >= 0.7:
@@ -445,11 +479,16 @@ def _cluster_v2(par, wf, seq_db, out_db):
         sens = 3.0 * (0.7 - par.min_seq_id) / (0.7 - 0.3)
     par.set("sensitivity", sens)
     clu_red = wf.path("clu_redundancy")
+    # the inner linclust must not already switch representatives
+    # (Cluster.cpp:277-282)
+    prev_switch = par.switch_consensus_rep
+    par.set("switch_consensus_rep", False)
     wf.step(clu_red, "linclust",
             [seq_db, clu_red, wf.path("linclust"),
              "--min-seq-id", par.min_seq_id, "-c", par.cov_thr,
              "--cov-mode", par.cov_mode, "-e", par.evalue,
              "--remove-tmp-files", int(par.remove_tmp_files)], par)
+    par.set("switch_consensus_rep", prev_switch)
 
     order = wf.path("order_redundancy")
     if not os.path.exists(order):
@@ -478,6 +517,7 @@ def _cluster_v2(par, wf, seq_db, out_db):
             for suf in ("", ".index", ".dbtype"):
                 if os.path.exists(clu2 + "_aln" + suf):
                     os.replace(clu2 + "_aln" + suf, out_db + "_aln" + suf)
+    _switch_consensus_rep(par, wf, seq_db, out_db, keep_aln)
     if par.remove_tmp_files:
         wf.cleanup(True)
     return 0

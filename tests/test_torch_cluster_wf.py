@@ -151,11 +151,11 @@ def test_cluster_workflow_parity(tmp_path, on_cpu):
 QDB = GOLDEN / "qdb"
 
 UNPORTED = {
-    "cluster --switch-consensus-rep": [
-        "cluster", QDB, "{out}", "{tmp}", "--cluster-version", "2",
-        "--switch-consensus-rep", "1"],
-    "linclust --switch-consensus-rep": [
-        "linclust", QDB, "{out}", "{tmp}", "--switch-consensus-rep", "1"],
+    "cluster profile": ["cluster", GOLDEN / "it_profile_0", "{out}",
+                        "{tmp}"],
+    "cluster v2 profile": ["cluster", GOLDEN / "it_profile_0", "{out}",
+                           "{tmp}", "--cluster-version", "2",
+                           "--switch-consensus-rep", "1"],
     "linclust profile": ["linclust", GOLDEN / "it_profile_0", "{out}",
                          "{tmp}"],
 }

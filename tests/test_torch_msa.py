@@ -502,12 +502,12 @@ def test_cli_runs_the_new_commands_without_jax(tmp_path):
 
 
 def test_registry_has_the_jax_packages_commands():
-    """110 commands, each with the JAX package's name, category and
+    """131 commands, each with the JAX package's name, category and
     argument counts; the 16 of the MSA slice among them."""
     from mmseqs2_tpu.registry import COMMANDS as JAX_COMMANDS
     from mmseqs2_tpu_torch.registry import COMMANDS
     jax = {c.name: c for c in JAX_COMMANDS}
-    assert len(COMMANDS) == 110
+    assert len(COMMANDS) == 131
     for c in COMMANDS:
         j = jax[c.name]
         assert (c.category, c.min_db, c.max_db, c.usage) == \

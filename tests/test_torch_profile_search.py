@@ -232,9 +232,9 @@ def test_iterative_search_and_result2profile_load_no_jax(tmp_path):
 
 
 @pytest.mark.parametrize("args", [
-    ["rbh", QDB, PROFILE, "{out}", "{tmp}"],
+    ["apply", PROFILE, "{out}", "--", "cat"],
     ["convertkb", "{tmp}/uniprot.dat", "{out}"],
-], ids=["rbh", "convertkb"])
+], ids=["apply", "convertkb"])
 def test_later_commands_exit_1_not_yet_ported(tmp_path, args):
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     env[ENV] = "cpu"

@@ -409,13 +409,12 @@ def test_unported_branch_exits_1(tmp_path):
     assert "not yet ported (see ROADMAP.md)" in r.stderr
     assert not (tmp_path / "aln.dbtype").exists()
     r = subprocess.run(
-        [sys.executable, "-m", "mmseqs2_tpu_torch", "rbh", "a", "b", "c",
-         "d"], env=env, capture_output=True, text=True, timeout=300)
+        [sys.executable, "-m", "mmseqs2_tpu_torch", "convertblastdb", "a",
+         "b"], env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 1 and "not yet ported" in r.stderr
     r = subprocess.run(
-        [sys.executable, "-m", "mmseqs2_tpu_torch", "linclust", str(QDB),
-         str(tmp_path / "clu"), str(tmp_path / "tmp"),
-         "--switch-consensus-rep", "1"],
+        [sys.executable, "-m", "mmseqs2_tpu_torch", "linclust", str(PROFILE),
+         str(tmp_path / "clu"), str(tmp_path / "tmp")],
         env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 1
     assert "not yet ported (see ROADMAP.md)" in r.stderr
